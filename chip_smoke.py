@@ -1,0 +1,403 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from a checkout of the repository on a machine with a CUDA card and the
+CUDA toolkit. It builds the port's hand-written kernels from the checkout's
+sources, holds each against its plain PyTorch version at the shapes of the
+DTWN round, times them, drives three full-width federated rounds through
+``DTWNSystem`` and checks one GPU round against the same round on the CPU.
+Any failure raises and exits non-zero. Without a CUDA device, or outside a
+checkout of the repository, it exits non-zero and prints no result.
+
+Output: one line per check and per timing, then a ``{"kernels": [...]}``
+line, then ``{"ok": true, "device": {...}}`` as the last line.
+"""
+from __future__ import annotations
+
+import importlib
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
+# tensor cores, the rate of the kernels' adds and multiply-adds
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# the CNN's Eq. 4 leaves (fc2_b, conv1_b, conv2_b, fc1_b, conv1_w, fc2_w,
+# conv2_w, fc1_w) and the Eq. 4 weights (K=1): N=10 twins over M=5 BSs
+EQ4_K = (1, 10, 32, 64, 512, 2400, 5120, 51200, 2_097_152)
+CNN_PARAMS = 2_156_490
+SEG_RTOL, SEG_ATOL = 1e-5, 1e-6
+FED_TOL = 1e-5
+L2_BYTES = 50 * 2**20
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+    """Least time on the card: the larger of bytes over HBM bandwidth and
+    operations over the fp32 peak. Returns (ms, "bytes" | "operations")."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(torch, fn, copies, batch: int = 40, reps: int = 5) -> dict:
+    """Time ``fn(*args)`` over the argument tuples in ``copies``.
+
+    ``ms``: device time per call. A ~10 ms device sleep is queued first, so
+    the host issues ``batch`` calls behind it and the device then runs them
+    back to back; CUDA events around the batch, divided by ``batch``, median
+    of ``reps`` batches. The calls cycle through ``copies`` so that the
+    working set exceeds the 50 MB L2 where one copy does not.
+    ``covered`` says whether the host issued each batch within the sleep
+    (else ``ms`` includes host time). ``call_ms``: one call alone after a
+    synchronize, host launch latency included; median of ``reps * 4``.
+    """
+    for args in copies:
+        fn(*args)
+    torch.cuda.synchronize()
+    per_call, covered = [], True
+    for _ in range(reps):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        torch.cuda._sleep(20_000_000)
+        e[1].record()
+        t0 = time.perf_counter()
+        for i in range(batch):
+            fn(*copies[i % len(copies)])
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        e[2].record()
+        e[2].synchronize()
+        covered &= issue_ms < e[0].elapsed_time(e[1])
+        per_call.append(e[1].elapsed_time(e[2]) / batch)
+    single = []
+    for i in range(reps * 4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*copies[i % len(copies)])
+        end.record()
+        end.synchronize()
+        single.append(start.elapsed_time(end))
+    return {"ms": statistics.median(per_call), "covered": covered,
+            "call_ms": statistics.median(single)}
+
+
+def n_copies(n_bytes: int) -> int:
+    """Copies of a call's inputs that together exceed twice the 50 MB L2
+    (at most 8)."""
+    return min(8, max(1, math.ceil(2 * L2_BYTES / max(n_bytes, 1))))
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_device(torch) -> dict:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{name}; count {torch.cuda.device_count()}")
+    log("[device] nvidia-smi name, power.limit:")
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[device] tf32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cudnn.allow_tf32 = False")
+    return {"name": name, "smi": smi, "count": torch.cuda.device_count()}
+
+
+def phase_build(sr, fr, build):
+    t0 = time.perf_counter()
+    build.build_all([sr.KERNEL, fr.KERNEL])
+    for k in (sr.KERNEL, fr.KERNEL):
+        k.lib()
+        report = [ln.strip() for ln in k.build_log.read_text().splitlines()
+                  if "registers" in ln or "spill" in ln]
+        log(f"[build] {k.target.name}: " + " | ".join(report))
+    log(f"[build] both kernels built and loaded in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
+def _seg_case(torch, gen, n, k, m, *, lo=0, hi=None, positive=False):
+    dev = "cuda"
+    vals = (torch.rand((n, k), generator=gen, device=dev) if positive
+            else torch.randn((n, k), generator=gen, device=dev))
+    ids = torch.randint(lo, m if hi is None else hi, (n,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    return vals, ids
+
+
+def phase_segment_check(torch, sr) -> float:
+    """Kernel vs plain version; returns the largest absolute error over
+    the main path's shapes (the Eq. 4 and Eq. 12/15 calls)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [("eq4", 10, k, 5, {}) for k in EQ4_K]
+    cases += [("eq12_15", 100, 1, 5, {}),
+              ("stage2", 100_000, 1, 8, {"positive": True}),
+              ("stage2_wide", 20_000, 40, 6, {"positive": True}),
+              ("out_of_range", 1000, 33, 8, {"lo": -3, "hi": 12})]
+    worst = 0.0
+    for tag, n, k, m, kw in cases:
+        vals, ids = _seg_case(torch, gen, n, k, m, **kw)
+        if tag == "out_of_range":  # leave segments 2 and 5 empty
+            ids = torch.where((ids == 2) | (ids == 5), 9, ids)
+        out = sr.segment_reduce_kernel(vals, ids, m)
+        again = sr.segment_reduce_kernel(vals, ids, m)
+        plain = sr._seg_tiled_plain(vals, ids, m)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        torch.testing.assert_close(out, plain, rtol=SEG_RTOL, atol=SEG_ATOL)
+        if not torch.equal(out, again):
+            raise AssertionError(f"segment kernel not bitwise repeatable at "
+                                 f"N={n} K={k} M={m}")
+        if tag == "out_of_range" and (out[2].any() or out[5].any()):
+            raise AssertionError("empty segments are not zero")
+        if tag in ("eq4", "eq12_15"):
+            worst = max(worst, err)
+        log(f"[segment] N={n} K={k} M={m} tiles="
+            f"{sr.KERNEL.lib().seg_reduce_tiles(n, k)} max_abs_err={err:.3e} "
+            f"bitwise_repeat=True ({tag})")
+    before = sr.KERNEL.launches
+    empty = sr.segment_reduce_kernel(
+        torch.zeros((0, 7), device="cuda"),
+        torch.zeros((0,), dtype=torch.int32, device="cuda"), 5)
+    if empty.shape != (5, 7) or empty.any() or sr.KERNEL.launches != before:
+        raise AssertionError("n=0 must return zeros without a launch")
+    log("[segment] N=0: zeros (5, 7), no launch")
+    log(f"[segment] ok: all within rtol {SEG_RTOL} / atol {SEG_ATOL} of the "
+        f"plain version; max_abs_err at the main path's shapes {worst:.3e}")
+    return worst
+
+
+def _fedavg_case(torch, fr, gen, c, n, main_path):
+    """Random (C, N) stack and weights: laid out by ``stack_rows`` as on the
+    main path, or contiguous."""
+    x = torch.randn((c, n), generator=gen, device="cuda")
+    w = torch.rand((c,), generator=gen, device="cuda") + 0.1
+    return (fr.stack_rows(list(x)) if main_path else x), w
+
+
+def phase_fedavg_check(torch, fr) -> float:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = 0.0
+    for c, n, main_path in [(5, CNN_PARAMS, True), (5, CNN_PARAMS, False),
+                            (3, 65_537, False), (16, 4096, False)]:
+        x, w = _fedavg_case(torch, fr, gen, c, n, main_path)
+        vec = x.stride(0) % 4 == 0
+        tag = ("main path, stack_rows" if main_path else "contiguous") + (
+            ": 16-byte loads" if vec else ": rows not 16-byte aligned, "
+            "4-byte loads")
+        out = fr.fedavg_reduce(x, w)
+        plain = fr.fedavg_reduce_plain(x, w)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        torch.testing.assert_close(out, plain, rtol=FED_TOL, atol=FED_TOL)
+        worst = max(worst, err)
+        log(f"[fedavg] C={c} N={n} row_stride={x.stride(0)} "
+            f"max_abs_err={err:.3e} ({tag})")
+    log(f"[fedavg] ok: all within {FED_TOL} of the plain version")
+    return worst
+
+
+def _timed(torch, label, kernel, plain, library, copies, n_bytes, n_ops):
+    row = {}
+    for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        got = time_ms(torch, fn, copies)
+        row[key + "ms"] = got["ms"]
+        row[key + "call_ms"] = got["call_ms"]
+        row[key + "covered"] = got["covered"]
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops)
+    log(f"[timing] {label}: kernel {row['ms']:.4f} ms (one call alone "
+        f"{row['call_ms']:.4f}), plain {row['plain_ms']:.4f} "
+        f"({row['plain_call_ms']:.4f}), library {row['library_ms']:.4f} "
+        f"({row['library_call_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}); host kept ahead: {row['covered']}/"
+        f"{row['plain_covered']}/{row['library_covered']}")
+    return row
+
+
+def phase_timing(torch, sr, fr) -> dict:
+    """Kernel, plain and library times at the main path's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    seg_rows = []
+    for n, k, m in [(10, kk, 5) for kk in EQ4_K] + [(100, 1, 5)]:
+        vals, ids = _seg_case(torch, gen, n, k, m)
+        n_bytes = n * k * 4 + n * 4 + m * k * 4
+        row = _timed(
+            torch, f"segment_reduce N={n} K={k} M={m}",
+            lambda v, a: sr.segment_reduce_kernel(v, a, m),
+            lambda v, a: sr._seg_tiled_plain(v, a, m),
+            lambda v, a: torch.zeros((m, k), device="cuda").index_add_(
+                0, a.long(), v),
+            [(vals.clone(), ids.clone()) for _ in range(n_copies(n_bytes))],
+            n_bytes, n * k)
+        row.update(N=n, K=k, M=m)
+        seg_rows.append(row)
+    c, n = 5, CNN_PARAMS
+    x, w = _fedavg_case(torch, fr, gen, c, n, True)
+    n_bytes = c * n * 4 + c * 4 + n * 4
+    copies = [(fr.stack_rows(list(x)), w.clone())  # laid out as x
+              for _ in range(n_copies(n_bytes))]
+    fed = _timed(torch, f"fedavg_reduce C={c} N={n}", fr.fedavg_reduce,
+                 fr.fedavg_reduce_plain,
+                 lambda xx, ww: torch.mv(xx.t(), ww / ww.sum()),
+                 copies, n_bytes, 2 * c * n)
+    fed.update(C=c, N=n)
+    calls = seg_rows + [seg_rows[-1]]  # the N=100 K=1 call is made twice
+    log(f"[timing] segment_reduce, one round's 11 calls (the weights and 8 "
+        f"leaves of Eq. 4, Eqs. 12 and 15): kernel "
+        f"{sum(r['ms'] for r in calls):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in calls):.4f} ms")
+    return {"segment": seg_rows, "fedavg": fed}
+
+
+def phase_slice(torch, sr, fr, data) -> dict:
+    from repro_torch.fl import (EXAMPLE_PARTICIPATING_USERS, DTWNSystem,
+                                FLConfig, example_association)
+
+    cfg = FLConfig(use_kernel_aggregation=True)
+    system = DTWNSystem(cfg, data, seed=0)  # cuda by default
+    n_params = sum(v.numel() for v in system.params.values())
+    if n_params != CNN_PARAMS:
+        raise AssertionError(f"CNN has {n_params} params, not {CNN_PARAMS}")
+    log(f"[slice] FLConfig() defaults: {cfg.n_users} users, {cfg.n_bs} BSs, "
+        f"{cfg.local_iters} local iters, batch {cfg.batch_size}, "
+        f"use_kernel_aggregation=True; data {data[2]} "
+        f"{data[0][0].shape[0]}/{data[1][0].shape[0]}; CNN {n_params} params")
+    sr.KERNEL.launches = 0
+    fr.KERNEL.launches = 0
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assoc = example_association(system)
+        info = system.run_round(
+            assoc, participating_users=EXAMPLE_PARTICIPATING_USERS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        log(f"[slice] round {info['round']}: wall {wall:.1f} ms, loss "
+            f"{info['loss']:.6f}, round_time_s {info['round_time_s']:.6f}, "
+            f"verified {info['n_verified']}/{info['n_submitted']}, "
+            f"chain_valid {info['chain_valid']}")
+        if not math.isfinite(info["loss"]):
+            raise AssertionError(f"loss is not finite: {info['loss']}")
+        if not info["chain_valid"]:
+            raise AssertionError("chain does not validate")
+    launches = {"segment_reduce": sr.KERNEL.launches,
+                "fedavg_reduce": fr.KERNEL.launches}
+    log(f"[slice] kernel launches in 3 rounds: {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} kernel never launched in the slice")
+    return launches
+
+
+def phase_gpu_vs_cpu(torch, data) -> None:
+    from repro_torch.core import comms
+    from repro_torch.fl import (EXAMPLE_PARTICIPATING_USERS, DTWNSystem,
+                                FLConfig, example_association)
+    from repro_torch.models import cnn
+
+    gen = torch.Generator().manual_seed(1)
+    wcfg = comms.WirelessConfig(n_bs=5)
+    init = {"params": {k: v.numpy() for k, v in cnn.init_params(gen).items()},
+            "dist": comms.sample_distances(wcfg, gen).numpy(),
+            "h_up": comms.sample_channel(wcfg, gen).numpy(),
+            "h_down": comms.sample_channel(wcfg, gen).numpy()}
+    cfg = FLConfig(use_kernel_aggregation=True)
+    infos, assoc = {}, None
+    for dev in ("cpu", "cuda"):
+        system = DTWNSystem(cfg, data, seed=1, init_state=init, device=dev)
+        if assoc is None:  # one association, computed on the CPU, for both
+            assoc = example_association(system).numpy()
+        infos[dev] = system.run_round(
+            assoc, participating_users=EXAMPLE_PARTICIPATING_USERS)
+        log(f"[gpu_vs_cpu] {dev}: chosen {infos[dev]['chosen']}, loss "
+            f"{infos[dev]['loss']:.7f}, verified {infos[dev]['n_verified']}")
+    cpu, gpu = infos["cpu"], infos["cuda"]
+    if gpu["chosen"] != cpu["chosen"]:
+        raise AssertionError("GPU and CPU rounds chose different twins")
+    if gpu["n_verified"] != cpu["n_verified"]:
+        raise AssertionError("GPU and CPU rounds verified different counts")
+    rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    if rel > 1e-4:
+        raise AssertionError(f"GPU loss {gpu['loss']} vs CPU {cpu['loss']}: "
+                             f"relative difference {rel:.2e} > 1e-4")
+    log(f"[gpu_vs_cpu] ok (tf32 off): same chosen and n_verified, loss "
+        f"relative difference {rel:.2e} <= 1e-4")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    sr = importlib.import_module("repro_torch.kernels.segment_reduce")
+    fr = importlib.import_module("repro_torch.kernels.fedavg_reduce")
+    build = importlib.import_module("repro_torch.kernels._build")
+    from repro_torch.data import cifar10
+
+    t_start = time.perf_counter()
+    device = phase_device(torch)
+    phase_build(sr, fr, build)
+    seg_err = phase_segment_check(torch, sr)
+    fed_err = phase_fedavg_check(torch, fr)
+    timing = phase_timing(torch, sr, fr)
+    t0 = time.perf_counter()
+    data = cifar10.load()
+    log(f"[data] {data[2]} {data[0][0].shape[0]}/{data[1][0].shape[0]} made "
+        f"in {time.perf_counter() - t0:.1f} s")
+    launches = phase_slice(torch, sr, fr, data)
+    phase_gpu_vs_cpu(torch, data)
+
+    fc1 = timing["segment"][EQ4_K.index(2_097_152)]
+    fed = timing["fedavg"]
+    kernels = [
+        {"name": "segment_reduce", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
+         "replaces": "src/repro/kernels/segment_reduce.py:212",
+         "launches": launches["segment_reduce"], "max_abs_err": seg_err,
+         "ms": fc1["ms"], "plain_ms": fc1["plain_ms"],
+         "bound_ms": fc1["bound_ms"], "bound_by": fc1["bound_by"],
+         "library_ms": fc1["library_ms"], "call_ms": fc1["call_ms"],
+         "shape": {"N": fc1["N"], "K": fc1["K"], "M": fc1["M"]}},
+        {"name": "fedavg_reduce", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
+         "replaces": "src/repro/kernels/fedavg_reduce.py:19",
+         "launches": launches["fedavg_reduce"], "max_abs_err": fed_err,
+         "ms": fed["ms"], "plain_ms": fed["plain_ms"],
+         "bound_ms": fed["bound_ms"], "bound_by": fed["bound_by"],
+         "library_ms": fed["library_ms"], "call_ms": fed["call_ms"],
+         "shape": {"C": fed["C"], "N": fed["N"]}},
+    ]
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
+        f"on {device['smi']}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device["name"], "count": device["count"]}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,68 @@
+"""FL client (digital twin) local training, paper Section II-B; port of
+``repro/fl/client.py``.
+
+A twin trains the shared model on its own shard with momentum SGD for
+``local_iters`` iterations and returns the updated parameters. Batch indices
+come from the same host ``np.random.RandomState(seed)`` draws as the
+reference. The attack trainers wait for ROADMAP A5.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.optim import make_optimizer
+
+
+def sgd_step(loss_fn: Callable, opt, params, opt_state, batch):
+    """One local SGD step: loss and gradients of ``loss_fn`` at ``params``,
+    then one optimizer update. Returns ``(params, opt_state, loss)`` with
+    the new params detached from autograd."""
+    keys = sorted(params)
+    leaves = [params[k].detach().requires_grad_(True) for k in keys]
+    loss = loss_fn(dict(zip(keys, leaves)), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        params, opt_state = opt.update(
+            {k: p.detach() for k, p in zip(keys, leaves)},
+            dict(zip(keys, grads)), opt_state)
+    return params, opt_state, loss.detach()
+
+
+def make_local_trainer(loss_fn: Callable, lr: float = 0.05,
+                       momentum: float = 0.9):
+    opt = make_optimizer("sgd", lr=lr, momentum=momentum)
+
+    def train_local(params, data_x, data_y, *, batch_size: int,
+                    local_iters: int, seed: int,
+                    rows: Optional[np.ndarray] = None):
+        """``local_iters`` steps on batches drawn from ``data_x``/``data_y``.
+
+        ``rows`` (optional) are the twin's sample indices into
+        ``data_x``/``data_y``, which may then be the whole training set on
+        the device: each batch is gathered there, and the host RandomState
+        draws are the same as for ``data_x[rows]``. Returns
+        ``(params, losses)``.
+        """
+        rng = np.random.RandomState(seed)
+        opt_state = opt.init(params)
+        n = data_x.shape[0] if rows is None else len(rows)
+        bs = int(min(batch_size, n))
+        device = next(iter(params.values())).device
+        data_x = torch.as_tensor(data_x, device=device)
+        data_y = torch.as_tensor(data_y, device=device)
+        losses = []
+        for _ in range(local_iters):
+            idx = rng.choice(n, size=bs, replace=n < bs)
+            if rows is not None:
+                idx = rows[idx]
+            take = torch.as_tensor(idx, device=device)
+            batch = {"images": data_x[take], "labels": data_y[take]}
+            params, opt_state, loss = sgd_step(loss_fn, opt, params,
+                                               opt_state, batch)
+            losses.append(loss)
+        return params, torch.stack(losses).tolist() if losses else []
+
+    return train_local
