@@ -5,9 +5,20 @@
 
 Run from a checkout of the repository on a machine with a CUDA card and the
 CUDA toolkit. It builds the port's hand-written kernels from the checkout's
-sources, holds each against its plain PyTorch version at the shapes of the
-DTWN round, times them, drives three full-width federated rounds through
-``DTWNSystem`` and checks one GPU round against the same round on the CPU.
+sources, in parallel, and drives the port's two paths:
+
+* the DTWN federated round: the segment-reduce and FedAvg kernels are held
+  against their plain PyTorch versions at the round's shapes and timed,
+  three full-width rounds run through ``DTWNSystem``, and one GPU round is
+  checked against the same round on the CPU;
+* the LM serving path: the flash-attention kernel is held against its plain
+  version on the reference tests' cases and at the prefill's shape, and
+  timed there; ``repro_torch.launch.serve`` serves h2o-danube-1.8b at full
+  width (random weights from a seed, 4 prompts of 4608 tokens, 32 new
+  tokens each); its last-position logits are checked against the plain
+  attention path on the card, and a 2-layer cut of it on the GPU against
+  the CPU.
+
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 
@@ -16,6 +27,7 @@ line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import math
@@ -26,10 +38,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
-# tensor cores, the rate of the kernels' adds and multiply-adds
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside the
+# tensor cores (the rate of the kernels' adds and multiply-adds) and dense
+# bf16 on the tensor cores (the least time of the bf16 attention's products)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # the CNN's Eq. 4 leaves (fc2_b, conv1_b, conv2_b, fc1_b, conv1_w, fc2_w,
 # conv2_w, fc1_w) and the Eq. 4 weights (K=1): N=10 twins over M=5 BSs
 EQ4_K = (1, 10, 32, 64, 512, 2400, 5120, 51200, 2_097_152)
@@ -43,11 +57,26 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+# the LM serving path: the reference tests' flash cases (B, Sq, Sk, Hq,
+# Hkv, hd, causal, window, softcap) and tolerances
+FLASH_CASES = [
+    (1, 64, 64, 4, 2, 32, True, 0, None),
+    (2, 128, 128, 8, 8, 64, True, 32, None),
+    (1, 96, 96, 4, 1, 48, True, 0, 50.0),
+    (2, 64, 256, 4, 2, 32, False, 0, None),
+    (1, 200, 200, 2, 2, 16, True, 64, None),
+    (1, 64, 64, 8, 2, 128, True, 0, None),
+]
+FLASH_TOL_F32, FLASH_TOL_BF16 = 2e-5, 3e-2
+
+
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     """Least time on the card: the larger of bytes over HBM bandwidth and
-    operations over the fp32 peak. Returns (ms, "bytes" | "operations")."""
+    operations over the peak rate for their type (fp32 by default).
+    Returns (ms, "bytes" | "operations")."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -122,15 +151,15 @@ def phase_device(torch) -> dict:
     return {"name": name, "smi": smi, "count": torch.cuda.device_count()}
 
 
-def phase_build(sr, fr, build):
+def phase_build(kernels, build):
     t0 = time.perf_counter()
-    build.build_all([sr.KERNEL, fr.KERNEL])
-    for k in (sr.KERNEL, fr.KERNEL):
+    build.build_all(kernels)
+    for k in kernels:
         k.lib()
         report = [ln.strip() for ln in k.build_log.read_text().splitlines()
                   if "registers" in ln or "spill" in ln]
         log(f"[build] {k.target.name}: " + " | ".join(report))
-    log(f"[build] both kernels built and loaded in "
+    log(f"[build] {len(kernels)} kernels built and loaded in "
         f"{time.perf_counter() - t0:.3f} s")
 
 
@@ -215,14 +244,15 @@ def phase_fedavg_check(torch, fr) -> float:
     return worst
 
 
-def _timed(torch, label, kernel, plain, library, copies, n_bytes, n_ops):
+def _timed(torch, label, kernel, plain, library, copies, n_bytes, n_ops,
+           ops_per_s=FP32_OPS_PER_S, **timing):
     row = {}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
-        got = time_ms(torch, fn, copies)
+        got = time_ms(torch, fn, copies, **timing)
         row[key + "ms"] = got["ms"]
         row[key + "call_ms"] = got["call_ms"]
         row[key + "covered"] = got["covered"]
-    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops)
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, ops_per_s)
     log(f"[timing] {label}: kernel {row['ms']:.4f} ms (one call alone "
         f"{row['call_ms']:.4f}), plain {row['plain_ms']:.4f} "
         f"({row['plain_call_ms']:.4f}), library {row['library_ms']:.4f} "
@@ -267,7 +297,7 @@ def phase_timing(torch, sr, fr) -> dict:
     return {"segment": seg_rows, "fedavg": fed}
 
 
-def phase_slice(torch, sr, fr, data) -> dict:
+def phase_slice(torch, sr, fr, data, kernels) -> dict:
     from repro_torch.fl import (EXAMPLE_PARTICIPATING_USERS, DTWNSystem,
                                 FLConfig, example_association)
 
@@ -280,8 +310,7 @@ def phase_slice(torch, sr, fr, data) -> dict:
         f"{cfg.local_iters} local iters, batch {cfg.batch_size}, "
         f"use_kernel_aggregation=True; data {data[2]} "
         f"{data[0][0].shape[0]}/{data[1][0].shape[0]}; CNN {n_params} params")
-    sr.KERNEL.launches = 0
-    fr.KERNEL.launches = 0
+    _reset(kernels)  # every count, just before the round's path
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -342,6 +371,217 @@ def phase_gpu_vs_cpu(torch, data) -> None:
         f"relative difference {rel:.2e} <= 1e-4")
 
 
+def _flash_inputs(torch, gen, B, Sq, Sk, Hq, Hkv, hd, dtype, q_std=1.0):
+    def draw(shape, std):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+    return (draw((B, Sq, Hq, hd), q_std), draw((B, Sk, Hkv, hd), 1.0),
+            draw((B, Sk, Hkv, hd), 1.0))
+
+
+def flash_main(serve) -> dict:
+    """The prefill's attention call in the serving run that
+    ``phase_serve`` drives: (B, S, Hq, Hkv, hd, window)."""
+    from repro_torch.configs import get_arch_config
+
+    cfg = get_arch_config(serve.ARCH)
+    return dict(B=serve.BATCH, S=serve.PROMPT_LEN, Hq=cfg.n_heads,
+                Hkv=cfg.n_kv_heads, hd=cfg.head_dim, window=cfg.sliding_window)
+
+
+def phase_flash_check(torch, fa) -> None:
+    """Kernel vs plain version on the reference tests' six cases, in fp32
+    at their tolerance."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for case in FLASH_CASES:
+        *shape, causal, window, cap = case
+        q, k, v = _flash_inputs(torch, gen, *shape, torch.float32)
+        kw = dict(causal=causal, window=window, logit_softcap=cap)
+        out = fa.flash_attention(q, k, v, **kw)
+        plain = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        torch.testing.assert_close(out, plain, rtol=FLASH_TOL_F32,
+                                   atol=FLASH_TOL_F32)
+        log(f"[flash] fp32 {case}: max_abs_err={err:.3e}")
+    log(f"[flash] ok: fp32 cases within {FLASH_TOL_F32} of the plain version")
+
+
+def phase_flash_main(torch, fa, m) -> dict:
+    """The prefill's attention call ``m`` in bf16: the kernel held against
+    its plain version, then kernel, plain and library times, on the same
+    inputs. q is drawn with std 4, so the scores have std 4 and the softmax
+    is peaked: outputs of order 1, where bf16's rounding shows. The row's
+    ``max_abs_err`` is the kernel's largest absolute error there."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = _flash_inputs(torch, gen, m["B"], m["S"], m["S"], m["Hq"],
+                            m["Hkv"], m["hd"], torch.bfloat16, q_std=4.0)
+    out = fa.flash_attention(q, k, v, window=m["window"])
+    plain = fa.flash_attention_plain(q, k, v, window=m["window"])
+    torch.cuda.synchronize()
+    err = float((out.float() - plain.float()).abs().max())
+    torch.testing.assert_close(out, plain, rtol=FLASH_TOL_BF16,
+                               atol=FLASH_TOL_BF16)
+    differ = float((out != plain).float().mean())
+    log(f"[flash] bf16 prefill shape B={m['B']} S={m['S']} Hq/Hkv={m['Hq']}/"
+        f"{m['Hkv']} hd={m['hd']} window={m['window']}: max_abs_err="
+        f"{err:.3e} (held to {FLASH_TOL_BF16}), max |out| "
+        f"{float(plain.float().abs().max()):.3f}, {differ:.2e} of the outputs "
+        f"differ from the plain version's")
+    del out, plain
+    torch.cuda.empty_cache()
+    pairs = m["B"] * m["Hq"] * fa.band_pairs(m["S"], m["S"], causal=True,
+                                             window=m["window"])
+    n_ops = 4 * m["hd"] * pairs  # 2 hd for q.k and 2 hd for p.v per pair
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    pos = torch.arange(m["S"], device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - m["window"])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(qq, kk, vv):  # (B, H, S, hd) views; a yardstick only
+        return sdpa(qq.transpose(1, 2), kk.transpose(1, 2),
+                    vv.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+    row = _timed(torch, f"flash_attention B={m['B']} S={m['S']} "
+                 f"Hq/Hkv={m['Hq']}/{m['Hkv']} hd={m['hd']} bf16",
+                 lambda qq, kk, vv: fa.flash_attention(
+                     qq, kk, vv, window=m["window"]),
+                 lambda qq, kk, vv: fa.flash_attention_plain(
+                     qq, kk, vv, window=m["window"]),
+                 library, [(q, k, v)], n_bytes, n_ops, BF16_OPS_PER_S,
+                 batch=4, reps=3)
+    row["bound_fp32_ms"] = bound_ms(n_bytes, n_ops)[0]
+    row.update(pairs=pairs, ops=n_ops, bytes=n_bytes, max_abs_err=err)
+    log(f"[timing] flash_attention: band {pairs} (q, k) pairs, {n_ops:.4e} "
+        f"ops, {n_bytes} bytes; bound {row['bound_ms']:.4f} ms at the bf16 "
+        f"tensor-core peak, {row['bound_fp32_ms']:.4f} ms at the fp32 peak; "
+        f"kernel at {n_ops / row['ms'] / 1e9:.2f} TFLOP/s")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def _reset(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def phase_serve(torch, kernels, serve) -> dict:
+    """The serving CLI at full width, with every count set to 0 just
+    before and read just after."""
+    argv = ["--arch", serve.ARCH, "--full", "--batch", str(serve.BATCH),
+            "--prompt-len", str(serve.PROMPT_LEN), "--gen", str(serve.GEN)]
+    log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv)}")
+    _reset(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    res = serve.main(argv)
+    launches = {k.source.stem: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_layers = res["cfg"].n_layers
+    log(f"[serve] kernel launches in the serving run: {json.dumps(launches)}; "
+        f"peak device memory {peak:.2f} GiB")
+    if launches["flash_attention"] != n_layers or res["flash_launches"] != n_layers:
+        raise AssertionError(f"the prefill launched the flash kernel "
+                             f"{res['flash_launches']} times "
+                             f"({launches['flash_attention']} in the run), "
+                             f"not once per layer ({n_layers})")
+    tokens, logits = res["tokens"], res["logits"]
+    if tuple(tokens.shape) != (serve.BATCH, serve.GEN):
+        raise AssertionError(f"generated {tuple(tokens.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("the served logits are not finite")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= res["cfg"].vocab_size:
+        raise AssertionError("a generated token is outside the vocabulary")
+    if not torch.equal(logits[..., :res["cfg"].vocab_size].argmax(-1), tokens):
+        raise AssertionError("a generated token is not its logits' argmax")
+    log(f"[serve] ok: {serve.BATCH} x {serve.GEN} tokens, finite logits; "
+        f"prefill {res['prefill_ms']:.1f} ms, decode "
+        f"{res['decode_s'] * 1e3:.1f} ms for {serve.GEN - 1} steps ({res['decode_tok_s']:.1f} tok/s)")
+    return {"launches": launches["flash_attention"],
+            "prefill_ms": res["prefill_ms"], "decode_s": res["decode_s"],
+            "decode_tok_s": res["decode_tok_s"], "peak_gib": peak}
+
+
+def phase_serve_kernel_vs_plain(torch, serve) -> None:
+    """The first served prompt at B=1 through the flash kernel and through
+    the plain attention path (``use_pallas=False``: the chunked version),
+    both on the card, with the same weights; last-position logits.
+
+    * bf16, the served model: each path rounds its attention outputs to
+      bf16 once, from fp32 sums taken in another order, so a few outputs a
+      layer differ by one bf16 ulp (2^-8 relative), and 24 layers of random
+      weights carry that into the logits. Held to 5% of the logits' largest
+      magnitude (the first chip run measured 1.5%).
+    * fp32 weights from the same draws: the paths differ only in the order
+      of fp32 sums. Held to 1e-3 of the largest magnitude.
+    """
+    from repro_torch.configs import get_arch_config
+    from repro_torch.models import build_model
+
+    for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-3)):
+        cfg = dataclasses.replace(get_arch_config(serve.ARCH),
+                                  param_dtype=dtype)
+        with torch.inference_mode():
+            model, params = serve.random_model(cfg, serve.SEED, "cuda")
+            prompt = serve.random_prompts(cfg, serve.BATCH, serve.PROMPT_LEN,
+                                          serve.SEED, "cuda")[:1]
+            got, _ = model.forward(params, {"tokens": prompt}, last_only=True)
+            plain, _ = build_model(cfg, use_pallas=False).forward(
+                params, {"tokens": prompt}, last_only=True)
+        got, plain = got[0, -1, :cfg.vocab_size], plain[0, -1, :cfg.vocab_size]
+        err = float((got - plain).abs().max())
+        scale = float(plain.abs().max())
+        top = torch.topk(plain, 2).values
+        log(f"[serve] {dtype} B=1 last-position logits, flash kernel vs plain "
+            f"path: max_abs_diff {err:.4e}, max |logit| {scale:.4f}, relative "
+            f"{err / scale:.3e} (held to {tol}); argmax {int(got.argmax())} vs "
+            f"{int(plain.argmax())} (plain top-2 gap "
+            f"{float(top[0] - top[1]):.4e})")
+        if not err <= tol * scale:
+            raise AssertionError(f"{dtype}: kernel and plain paths differ by "
+                                 f"{err} > {tol} of max |logit| {scale}")
+        del model, params
+        torch.cuda.empty_cache()
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def phase_serve_gpu_vs_cpu(torch, fa, serve) -> None:
+    """h2o-danube at full width cut to 2 layers, in fp32, with the same
+    weights and a 1024-token prompt: 4 greedy tokens on the GPU (flash
+    kernel) and on the CPU (its plain version). Same tokens, and logits
+    within 1e-4, the CPU parity tests' tolerance for fp32 (tf32 off)."""
+    from repro_torch.configs import get_arch_config
+
+    cfg = dataclasses.replace(get_arch_config(serve.ARCH), n_layers=2,
+                              param_dtype="float32")
+    out = {}
+    with torch.inference_mode():
+        model, params = serve.random_model(cfg, 1, "cpu")
+        prompt = serve.random_prompts(cfg, 1, 1024, 1, "cpu")
+        for dev in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            before = fa.KERNEL.launches
+            out[dev] = serve.generate(model, _to(params, dev), prompt.to(dev),
+                                      4)
+            log(f"[serve_gpu_vs_cpu] {dev}: tokens "
+                f"{out[dev]['tokens'].tolist()} in "
+                f"{time.perf_counter() - t0:.2f} s; flash launches "
+                f"{fa.KERNEL.launches - before}")
+    cpu, gpu = out["cpu"], out["cuda"]
+    if not torch.equal(gpu["tokens"].cpu(), cpu["tokens"]):
+        raise AssertionError("GPU and CPU generated different tokens")
+    err = float((gpu["logits"].cpu() - cpu["logits"]).abs().max())
+    torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"], rtol=1e-4,
+                               atol=1e-4)
+    log(f"[serve_gpu_vs_cpu] ok (tf32 off): same 4 tokens, logits max abs "
+        f"difference {err:.3e} <= 1e-4")
+
+
 def main() -> int:
     import torch
 
@@ -355,21 +595,31 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     sr = importlib.import_module("repro_torch.kernels.segment_reduce")
     fr = importlib.import_module("repro_torch.kernels.fedavg_reduce")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     build = importlib.import_module("repro_torch.kernels._build")
+    serve = importlib.import_module("repro_torch.launch.serve")
     from repro_torch.data import cifar10
 
+    kernels = [sr.KERNEL, fr.KERNEL, fa.KERNEL]
     t_start = time.perf_counter()
     device = phase_device(torch)
-    phase_build(sr, fr, build)
+    phase_build(kernels, build)
     seg_err = phase_segment_check(torch, sr)
     fed_err = phase_fedavg_check(torch, fr)
+    phase_flash_check(torch, fa)
+    main_call = flash_main(serve)
+    flash = phase_flash_main(torch, fa, main_call)
     timing = phase_timing(torch, sr, fr)
     t0 = time.perf_counter()
     data = cifar10.load()
     log(f"[data] {data[2]} {data[0][0].shape[0]}/{data[1][0].shape[0]} made "
         f"in {time.perf_counter() - t0:.1f} s")
-    launches = phase_slice(torch, sr, fr, data)
+    launches = phase_slice(torch, sr, fr, data, kernels)
     phase_gpu_vs_cpu(torch, data)
+    del data
+    served = phase_serve(torch, kernels, serve)
+    phase_serve_kernel_vs_plain(torch, serve)
+    phase_serve_gpu_vs_cpu(torch, fa, serve)
 
     fc1 = timing["segment"][EQ4_K.index(2_097_152)]
     fed = timing["fedavg"]
@@ -390,6 +640,15 @@ def main() -> int:
          "bound_ms": fed["bound_ms"], "bound_by": fed["bound_by"],
          "library_ms": fed["library_ms"], "call_ms": fed["call_ms"],
          "shape": {"C": fed["C"], "N": fed["N"]}},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:32",
+         "launches": served["launches"], "max_abs_err": flash["max_abs_err"],
+         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
+         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
+         "library_ms": flash["library_ms"], "call_ms": flash["call_ms"],
+         "bound_fp32_ms": flash["bound_fp32_ms"],
+         "shape": {**main_call, "dtype": "bfloat16", "causal": True}},
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"on {device['smi']}")

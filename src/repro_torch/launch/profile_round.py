@@ -112,27 +112,32 @@ def _union_us(intervals) -> float:
     return total
 
 
-def profiled_round(system) -> None:
+def profiled(fn, tag: str = "profile") -> dict:
+    """Run ``fn()`` once under ``torch.profiler`` after a synchronize, and
+    print its wall time, device busy time (the union of kernel and copy
+    intervals), idle share and ``TOP_KERNELS`` largest items of device time.
+    Returns ``{kernel name: [device ms, count]}`` (empty when the profiler
+    recorded no device events: the device numbers are then printed as "not
+    measured")."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        system.run_round(example_association(system),
-                         participating_users=EXAMPLE_PARTICIPATING_USERS)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-    print(f"[profile] round wall {wall_ms:.1f} ms (profiler on)")
+    print(f"[{tag}] wall {wall_ms:.1f} ms (profiler on)")
     if not dev_events:
-        print("[profile] device time: not measured (no device events)")
-        return
+        print(f"[{tag}] device time: not measured (no device events)")
+        return {}
     busy_ms = _union_us((e.time_range.start, e.time_range.end)
                         for e in dev_events) / 1e3
     span_ms = (max(e.time_range.end for e in dev_events)
                - min(e.time_range.start for e in dev_events)) / 1e3
-    print(f"[profile] device busy {busy_ms:.2f} ms over a {span_ms:.1f} ms "
+    print(f"[{tag}] device busy {busy_ms:.2f} ms over a {span_ms:.1f} ms "
           f"device span; idle share of the wall time "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%; {len(dev_events)} device "
           f"events")
@@ -142,7 +147,14 @@ def profiled_round(system) -> None:
         by_name[e.name][1] += 1
     for name, (ms, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:TOP_KERNELS]:
-        print(f"[profile]   {ms:8.3f} ms {count:5d}x  {name[:100]}")
+        print(f"[{tag}]   {ms:8.3f} ms {count:5d}x  {name[:100]}")
+    return dict(by_name)
+
+
+def profiled_round(system) -> None:
+    profiled(lambda: system.run_round(
+        example_association(system),
+        participating_users=EXAMPLE_PARTICIPATING_USERS))
 
 
 def main() -> None:

@@ -4,8 +4,9 @@ An AST scan shows that no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or the reference package ``repro``. With
 no CUDA device present, the entry points that default to ``cuda`` raise. The
 kernel wrappers run their plain versions only because the tensors they are
-given lie on the CPU; ``tests/test_torch_segment_reduce.py`` and
-``tests/test_torch_fedavg_reduce.py`` check that no launch is counted then.
+given lie on the CPU; ``tests/test_torch_segment_reduce.py``,
+``tests/test_torch_fedavg_reduce.py`` and ``tests/test_torch_flash_attention.py``
+check that no launch is counted then.
 """
 import ast
 import importlib
@@ -84,3 +85,19 @@ def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
         sr.segment_reduce_kernel(meta, ids, 2)
     with pytest.raises(ValueError, match="CUDA"):
         fr.fedavg_reduce(meta, torch.ones(4))
+
+
+def test_lm_entry_points_raise_without_cuda():
+    _no_card()
+    from repro_torch.launch import serve
+
+    for argv in ([], ["--full"], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", "h2o-danube-1.8b", *argv])
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    q, k = torch.ones((1, 4, 2, 8)), torch.ones((1, 4, 1, 8))
+    before = fa.KERNEL.launches
+    assert fa.flash_attention(q, k, k).shape == q.shape
+    assert fa.KERNEL.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q.to("meta"), k, k)
