@@ -5,7 +5,7 @@
 
 Run from a checkout of the repository on a machine with a CUDA card and the
 CUDA toolkit. It builds the port's hand-written kernels from the checkout's
-sources, in parallel, and drives the port's two paths:
+sources, in parallel, and drives the port's three paths:
 
 * the DTWN federated round: the segment-reduce and FedAvg kernels are held
   against their plain PyTorch versions at the round's shapes and timed,
@@ -17,7 +17,14 @@ sources, in parallel, and drives the port's two paths:
   width (random weights from a seed, 4 prompts of 4608 tokens, 32 new
   tokens each); its last-position logits are checked against the plain
   attention path on the card, and a 2-layer cut of it on the GPU against
-  the CPU.
+  the CPU;
+* mamba2-2.7b's scoring forward: the SSD-scan kernel is held against its
+  plain version on the reference tests' cases and at the forward's shape,
+  and timed there; ``build_model(cfg, use_pallas=True).forward`` runs at
+  full width (random bf16 weights from a seed, 4 prompts of 4608 tokens,
+  last-position logits) with one kernel launch per layer; its logits are
+  checked against the plain-SSD forward on the card, a 2-layer fp32 cut on
+  the GPU against the CPU, and the serving CLI steps a short SSM prompt.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -68,6 +75,17 @@ FLASH_CASES = [
     (1, 64, 64, 8, 2, 128, True, 0, None),
 ]
 FLASH_TOL_F32, FLASH_TOL_BF16 = 2e-5, 3e-2
+# mamba2's path: the reference tests' SSD cases (B, S, H, P, N, chunk) and
+# tolerance, and the short SSM serving run (prompts, prompt length, new
+# tokens)
+SSD_CASES = [
+    (1, 64, 2, 8, 4, 16),
+    (2, 128, 4, 16, 8, 32),
+    (1, 256, 8, 32, 16, 64),
+    (2, 96, 2, 64, 128, 32),
+]
+SSD_ATOL, SSD_RTOL = 2e-4, 2e-3
+SSM_SERVE = (4, 64, 8)
 
 
 def bound_ms(n_bytes: float, n_ops: float,
@@ -246,17 +264,22 @@ def phase_fedavg_check(torch, fr) -> float:
 
 def _timed(torch, label, kernel, plain, library, copies, n_bytes, n_ops,
            ops_per_s=FP32_OPS_PER_S, **timing):
-    row = {}
+    row = {"library_ms": None, "library_call_ms": None,
+           "library_covered": None}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
+        if fn is None:  # no single library call computes the function
+            continue
         got = time_ms(torch, fn, copies, **timing)
         row[key + "ms"] = got["ms"]
         row[key + "call_ms"] = got["call_ms"]
         row[key + "covered"] = got["covered"]
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, ops_per_s)
+    lib = ("none" if library is None else
+           f"{row['library_ms']:.4f} ({row['library_call_ms']:.4f})")
     log(f"[timing] {label}: kernel {row['ms']:.4f} ms (one call alone "
         f"{row['call_ms']:.4f}), plain {row['plain_ms']:.4f} "
-        f"({row['plain_call_ms']:.4f}), library {row['library_ms']:.4f} "
-        f"({row['library_call_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+        f"({row['plain_call_ms']:.4f}), library {lib}, bound "
+        f"{row['bound_ms']:.4f} ms "
         f"({row['bound_by']}); host kept ahead: {row['covered']}/"
         f"{row['plain_covered']}/{row['library_covered']}")
     return row
@@ -582,6 +605,255 @@ def phase_serve_gpu_vs_cpu(torch, fa, serve) -> None:
         f"difference {err:.3e} <= 1e-4")
 
 
+def _ssd_inputs(torch, gen, B, S, H, P, N, *, as_forward=False):
+    """x, dt, A, Bm, Cm on the card. By default as the reference tests draw
+    them (x, B, C normal, dt = softplus of a normal, A = -exp of a normal);
+    ``as_forward``: as ``mamba_forward`` makes them, x, B and C out of a
+    SiLU, dt = softplus(normal + dt_bias 0), A = -exp(log(linspace(1, 16,
+    H))), the init's decay rates."""
+    F = torch.nn.functional
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    if as_forward:
+        x, bm, cm = (F.silu(draw(B, S, H, P)), F.silu(draw(B, S, N)),
+                     F.silu(draw(B, S, N)))
+        A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, H, device="cuda")))
+    else:
+        x, bm, cm = draw(B, S, H, P), draw(B, S, N), draw(B, S, N)
+        A = -torch.exp(draw(H))
+    return x, F.softplus(draw(B, S, H)), A, bm, cm
+
+
+def _ssd_close(torch, out, plain, label) -> float:
+    err = float((out - plain).abs().max())
+    torch.testing.assert_close(out, plain, rtol=SSD_RTOL, atol=SSD_ATOL)
+    log(f"[ssd] {label}: max_abs_err={err:.3e}, max |y| "
+        f"{float(plain.abs().max()):.3f}")
+    return err
+
+
+def phase_ssd_check(torch, ssd) -> None:
+    """Kernel vs plain version on the reference tests' four cases, at
+    their tolerance, and bitwise repeatable."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for case in SSD_CASES:
+        *shape, chunk = case
+        args = _ssd_inputs(torch, gen, *shape)
+        out = ssd.ssd_scan(*args, chunk=chunk)
+        again = ssd.ssd_scan(*args, chunk=chunk)
+        plain = ssd.ssd_scan_plain(*args, chunk)
+        torch.cuda.synchronize()
+        _ssd_close(torch, out, plain, f"{case}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"SSD kernel not bitwise repeatable at {case}")
+    log(f"[ssd] ok: cases within atol {SSD_ATOL} / rtol {SSD_RTOL} of the "
+        f"plain version, bitwise repeatable")
+
+
+def ssd_main(serve) -> dict:
+    """The forward's SSD call, one per layer: (B, S, H, P, N, chunk)."""
+    from repro_torch.configs import get_arch_config
+
+    cfg = get_arch_config(serve.SSM_ARCH)
+    return dict(B=serve.BATCH, S=serve.PROMPT_LEN, H=cfg.ssm_heads,
+                P=cfg.ssm_head_dim, N=cfg.ssm_state, chunk=cfg.ssm_chunk)
+
+
+def phase_ssd_main(torch, ssd, m) -> dict:
+    """The forward's SSD call ``m``, on inputs drawn as the forward makes
+    them: the kernel held against its plain version, then kernel and plain
+    times on the same inputs. No single PyTorch call computes the scan, so
+    there is no library time."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shape = [m[k] for k in ("B", "S", "H", "P", "N")]
+    args = _ssd_inputs(torch, gen, *shape, as_forward=True)
+    out = ssd.ssd_scan(*args, chunk=m["chunk"])
+    plain = ssd.ssd_scan_plain(*args, m["chunk"])
+    torch.cuda.synchronize()
+    err = _ssd_close(torch, out, plain, f"forward shape {m}")
+    del out, plain
+    torch.cuda.empty_cache()
+    n_ops = ssd.ssd_flops(*shape, m["chunk"])
+    n_bytes = sum(t.numel() * t.element_size() for t in args) + \
+        args[0].numel() * 4  # y, written once
+    row = _timed(torch, "ssd_scan " + " ".join(f"{k}={v}" for k, v in
+                                                m.items()),
+                 lambda *a: ssd.ssd_scan(*a, chunk=m["chunk"]),
+                 lambda *a: ssd.ssd_scan_plain(*a, m["chunk"]),
+                 None, [args], n_bytes, n_ops, batch=4, reps=3)
+    row["bound_bf16_ms"] = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)[0]
+    row.update(ops=n_ops, bytes=n_bytes, max_abs_err=err)
+    log(f"[timing] ssd_scan: {n_ops:.4e} ops, {n_bytes} bytes; bound "
+        f"{row['bound_ms']:.4f} ms at the fp32 peak ({row['bound_by']}), "
+        f"{row['bound_bf16_ms']:.4f} ms at the bf16 tensor-core peak; "
+        f"kernel at {n_ops / row['ms'] / 1e9:.2f} TFLOP/s")
+    del args
+    torch.cuda.empty_cache()
+    return row
+
+
+def _last_logits_close(torch, got, plain, tol, label) -> None:
+    got, plain = got[..., -1, :].float(), plain[..., -1, :].float()
+    err = float((got - plain).abs().max())
+    scale = float(plain.abs().max())
+    same = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+    log(f"[mamba] {label}: last-position logits max_abs_diff {err:.4e}, max "
+        f"|logit| {scale:.4f}, relative {err / scale:.3e} (held to {tol}); "
+        f"same argmax in {same:.2f} of the rows")
+    if not err <= tol * scale:
+        raise AssertionError(f"{label}: logits differ by {err} > {tol} of "
+                             f"max |logit| {scale}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_mamba_forward(torch, kernels, serve) -> dict:
+    """The main path: mamba2-2.7b's forward at full width through the SSD
+    kernel, with every count set to 0 just before and read just after;
+    then the same forward through the plain SSD (``use_pallas=False``) on
+    the same weights and prompts.
+
+    * bf16, the model as served: the two paths differ in the order of fp32
+      sums inside the scan, and y is rounded to bf16, so a few values a
+      layer differ by one bf16 ulp (2^-8 relative) and 64 layers of random
+      weights carry that into the logits: held to 5% of their largest
+      magnitude, as the flash path's check.
+    * fp32 weights from the same draws, B=1: only the order of fp32 sums
+      differs. Held to 1e-3 of the largest magnitude.
+    """
+    from repro_torch.configs import get_arch_config
+    from repro_torch.models import build_model
+
+    cfg = get_arch_config(serve.SSM_ARCH)
+    with torch.inference_mode():
+        model, params = serve.random_model(cfg, serve.SEED, "cuda")
+        n_params = sum(v.numel() for v in _leaves(params))
+        tokens = serve.random_prompts(cfg, serve.BATCH, serve.PROMPT_LEN,
+                                      serve.SEED, "cuda")
+        log(f"[mamba] {cfg.name}: {cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.ssm_heads} heads x P {cfg.ssm_head_dim}, N "
+            f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab "
+            f"{cfg.vocab_padded}, {cfg.param_dtype}; {n_params} parameters "
+            f"(param_count {cfg.param_count()}); tokens "
+            f"{tuple(tokens.shape)}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, {"tokens": tokens}, last_only=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = {k.source.stem: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[mamba] forward B={serve.BATCH} S={serve.PROMPT_LEN}: {wall:.1f} "
+            f"ms (cold, host clock); kernel launches {json.dumps(launches)}; "
+            f"peak device memory {peak:.2f} GiB")
+        if launches["ssd_scan"] != cfg.n_layers:
+            raise AssertionError(f"the forward launched the SSD kernel "
+                                 f"{launches['ssd_scan']} times, not once per "
+                                 f"layer ({cfg.n_layers})")
+        if tuple(logits.shape) != (serve.BATCH, 1, cfg.vocab_padded) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"forward logits {tuple(logits.shape)} not "
+                                 f"finite or not (B, 1, vocab_padded)")
+        t0 = time.perf_counter()
+        logits2, _ = model.forward(params, {"tokens": tokens}, last_only=True)
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(logits, logits2):
+            raise AssertionError("two forwards gave different logits")
+        log(f"[mamba] forward again: {warm:.1f} ms (warm), the same logits")
+        plain, _ = build_model(cfg, use_pallas=False).forward(
+            params, {"tokens": tokens}, last_only=True)
+        _last_logits_close(torch, logits, plain, 5e-2,
+                           f"bf16 B={serve.BATCH}, kernel vs plain-SSD "
+                           f"forward")
+        del model, params, plain, logits2
+        torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+        model, params = serve.random_model(cfg32, serve.SEED, "cuda")
+        got, _ = model.forward(params, {"tokens": tokens[:1]}, last_only=True)
+        plain, _ = build_model(cfg32, use_pallas=False).forward(
+            params, {"tokens": tokens[:1]}, last_only=True)
+        _last_logits_close(torch, got, plain, 1e-3,
+                           "fp32 B=1, kernel vs plain-SSD forward")
+        del model, params
+    torch.cuda.empty_cache()
+    return {"launches": launches["ssd_scan"], "cold_ms": wall,
+            "warm_ms": warm, "peak_gib": peak}
+
+
+def phase_mamba_gpu_vs_cpu(torch, ssd, serve) -> None:
+    """mamba2-2.7b at full width cut to 2 layers, in fp32, with the same
+    weights: the forward's last-position logits over a 512-token prompt (2
+    chunks) on the GPU (SSD kernel) and on the CPU (its plain version),
+    and 4 greedy tokens after a 16-token prompt through the serving loop
+    (stepped prefill). Same tokens, logits within 1e-4, the CPU parity
+    tests' tolerance for fp32 (tf32 off)."""
+    from repro_torch.configs import get_arch_config
+
+    cfg = dataclasses.replace(get_arch_config(serve.SSM_ARCH), n_layers=2,
+                              param_dtype="float32")
+    fwd, gen = {}, {}
+    with torch.inference_mode():
+        model, params = serve.random_model(cfg, 1, "cpu")
+        prompt = serve.random_prompts(cfg, 1, 512, 1, "cpu")
+        for dev in ("cpu", "cuda"):
+            p = _to(params, dev)
+            before = ssd.KERNEL.launches
+            fwd[dev], _ = model.forward(p, {"tokens": prompt.to(dev)},
+                                        last_only=True)
+            gen[dev] = serve.generate(model, p, prompt[:, :16].to(dev), 4)
+            log(f"[mamba_gpu_vs_cpu] {dev}: SSD launches "
+                f"{ssd.KERNEL.launches - before}; tokens "
+                f"{gen[dev]['tokens'].tolist()}")
+    err = float((fwd["cuda"].cpu() - fwd["cpu"]).abs().max())
+    torch.testing.assert_close(fwd["cuda"].cpu(), fwd["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    if not torch.equal(gen["cuda"]["tokens"].cpu(), gen["cpu"]["tokens"]):
+        raise AssertionError("GPU and CPU generated different tokens")
+    gerr = float((gen["cuda"]["logits"].cpu() - gen["cpu"]["logits"]).abs()
+                 .max())
+    torch.testing.assert_close(gen["cuda"]["logits"].cpu(),
+                               gen["cpu"]["logits"], rtol=1e-4, atol=1e-4)
+    log(f"[mamba_gpu_vs_cpu] ok (tf32 off): forward logits max abs "
+        f"difference {err:.3e}, decode logits {gerr:.3e} (<= 1e-4), same 4 "
+        f"tokens")
+
+
+def phase_ssm_serve(torch, kernels, serve) -> None:
+    """The serving CLI on mamba2 at full width with a short prompt, counts
+    set to 0 just before and read just after: the prefill steps
+    ``decode_step`` over the prompt (as the reference's serve does), so it
+    runs ``mamba_decode`` on the card and launches no kernel."""
+    B, P, G = SSM_SERVE
+    argv = ["--arch", serve.SSM_ARCH, "--full", "--batch", str(B),
+            "--prompt-len", str(P), "--gen", str(G)]
+    log(f"[ssm_serve] python -m repro_torch.launch.serve {' '.join(argv)}")
+    _reset(kernels)
+    res = serve.main(argv)
+    launches = {k.source.stem: k.launches for k in kernels}
+    log(f"[ssm_serve] kernel launches in the run: {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError("the stepped SSM serve launched a kernel")
+    tokens, logits = res["tokens"], res["logits"]
+    if tuple(tokens.shape) != (B, G) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"generated {tuple(tokens.shape)}, or logits "
+                             f"not finite")
+    if not torch.equal(logits[..., :res["cfg"].vocab_size].argmax(-1), tokens):
+        raise AssertionError("a generated token is not its logits' argmax")
+    log(f"[ssm_serve] ok: {B} x {G} tokens, finite logits; prefill "
+        f"{res['prefill_ms']:.1f} ms ({P} steps), decode "
+        f"{res['decode_tok_s']:.1f} tok/s")
+
+
 def main() -> int:
     import torch
 
@@ -596,11 +868,12 @@ def main() -> int:
     sr = importlib.import_module("repro_torch.kernels.segment_reduce")
     fr = importlib.import_module("repro_torch.kernels.fedavg_reduce")
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
     build = importlib.import_module("repro_torch.kernels._build")
     serve = importlib.import_module("repro_torch.launch.serve")
     from repro_torch.data import cifar10
 
-    kernels = [sr.KERNEL, fr.KERNEL, fa.KERNEL]
+    kernels = [sr.KERNEL, fr.KERNEL, fa.KERNEL, ssd.KERNEL]
     t_start = time.perf_counter()
     device = phase_device(torch)
     phase_build(kernels, build)
@@ -609,6 +882,9 @@ def main() -> int:
     phase_flash_check(torch, fa)
     main_call = flash_main(serve)
     flash = phase_flash_main(torch, fa, main_call)
+    phase_ssd_check(torch, ssd)
+    ssd_call = ssd_main(serve)
+    scan = phase_ssd_main(torch, ssd, ssd_call)
     timing = phase_timing(torch, sr, fr)
     t0 = time.perf_counter()
     data = cifar10.load()
@@ -620,6 +896,9 @@ def main() -> int:
     served = phase_serve(torch, kernels, serve)
     phase_serve_kernel_vs_plain(torch, serve)
     phase_serve_gpu_vs_cpu(torch, fa, serve)
+    forward = phase_mamba_forward(torch, kernels, serve)
+    phase_mamba_gpu_vs_cpu(torch, ssd, serve)
+    phase_ssm_serve(torch, kernels, serve)
 
     fc1 = timing["segment"][EQ4_K.index(2_097_152)]
     fed = timing["fedavg"]
@@ -649,6 +928,15 @@ def main() -> int:
          "library_ms": flash["library_ms"], "call_ms": flash["call_ms"],
          "bound_fp32_ms": flash["bound_fp32_ms"],
          "shape": {**main_call, "dtype": "bfloat16", "causal": True}},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:21",
+         "launches": forward["launches"], "max_abs_err": scan["max_abs_err"],
+         "ms": scan["ms"], "plain_ms": scan["plain_ms"],
+         "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
+         "library_ms": None, "call_ms": scan["call_ms"],
+         "bound_bf16_ms": scan["bound_bf16_ms"],
+         "shape": {**ssd_call, "dtype": "float32"}},
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"on {device['smi']}")

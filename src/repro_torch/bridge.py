@@ -30,7 +30,9 @@ def lm_params_from_numpy(tree, device, dtype=None):
     ``np.asarray`` of a bf16 array gives an ``ml_dtypes.bfloat16`` array,
     which ``torch.from_numpy`` refuses; every leaf goes through float32,
     which holds bf16 exactly, and is then cast to ``dtype`` (default: the
-    leaf's own dtype when it is float32, else bfloat16).
+    leaf's own dtype when it is float32, else bfloat16). The default keeps a
+    bf16 mamba tree's fp32 leaves (``A_log``, ``D``, ``dt_bias``) in fp32;
+    a ``dtype`` casts every leaf.
     """
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device, dtype)

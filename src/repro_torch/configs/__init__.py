@@ -13,6 +13,7 @@ from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, smoke_redu
 
 _ARCH_MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
 }
 
 # the reference's other architectures, with what each still needs
@@ -20,11 +21,10 @@ NOT_PORTED = {
     "mixtral-8x22b": "ROADMAP A11 (MoE)",
     "gemma2-9b": "ROADMAP A11 (gemma2 pair_lg layers)",
     "deepseek-v2-236b": "ROADMAP A11 (MLA, MoE, dense prologue)",
-    "jamba-1.5-large-398b": "ROADMAP A11 (jamba hybrid, MoE) after B4",
+    "jamba-1.5-large-398b": "ROADMAP A11 (jamba hybrid, MoE)",
     "qwen1.5-4b": "ROADMAP A11 (its config and QKV-bias parity)",
     "qwen2-vl-7b": "ROADMAP A11 (M-RoPE, vision stub)",
     "seamless-m4t-large-v2": "ROADMAP A11 (encoder-decoder)",
-    "mamba2-2.7b": "ROADMAP B4 (mamba2 and the SSD scan kernel)",
     "command-r-plus-104b": "ROADMAP A11 (its config, tied embeddings)",
 }
 

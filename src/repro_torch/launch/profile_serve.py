@@ -14,13 +14,19 @@ generation it reports:
    decode steps: wall time, device busy time, idle share, the largest items
    of device time, and the flash kernel's share of the prefill's device
    time. When the profiler records no device events, the device numbers are
-   printed as "not measured".
+   printed as "not measured";
+3. mamba2-2.7b's scoring forward (``serve.SSM_ARCH``) on the same prompts'
+   shape, through the SSD kernel: its warm time on the host clock after a
+   synchronize, and a ``torch.profiler`` trace of one forward with its
+   device time split into the SSD kernel (its C·Bᵀ pass included), the
+   matrix products (cuBLAS) and the rest (elementwise passes and copies).
 
 Needs a CUDA device; prints nothing it did not measure.
 """
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
 
@@ -30,18 +36,52 @@ from repro_torch.launch.profile_round import profiled
 
 B, P, G = serve.BATCH, serve.PROMPT_LEN, serve.GEN
 DECODE_STEPS = 8
+# device-kernel name fragments: the SSD kernel's two kernels, cuBLAS's
+# matrix products
+SSD_NAMES = ("ssd_kernel", "cb_kernel")
+MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_serve: needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-        check=True).stdout.strip().splitlines()[0]
+def forward_split(by_name) -> dict:
+    """Device ms of a forward by kind: ``ssd``, ``matmul``, ``other``."""
+    split = {"ssd": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        kind = ("ssd" if any(n in low for n in SSD_NAMES) else
+                "matmul" if any(n in low for n in MATMUL_NAMES) else "other")
+        split[kind] += ms
+    return split
+
+
+def profile_mamba() -> None:
+    cfg = get_arch_config(serve.SSM_ARCH)
+    print(f"[setup] {serve.SSM_ARCH} full width, forward B={B} S={P}")
+    with torch.inference_mode():
+        model, params = serve.random_model(cfg, serve.SEED, "cuda")
+        tokens = serve.random_prompts(cfg, B, P, serve.SEED, "cuda")
+
+        def forward():
+            model.forward(params, {"tokens": tokens}, last_only=True)
+
+        forward()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        print(f"[warm] mamba forward {(time.perf_counter() - t0) * 1e3:.1f} "
+              f"ms")
+        by_name = profiled(forward, "mamba forward")
+        if by_name:
+            split = forward_split(by_name)
+            total = sum(split.values())
+            print("[mamba forward] device time by kind: " + ", ".join(
+                f"{k} {ms:.1f} ms ({100 * ms / total:.1f}%)"
+                for k, ms in split.items()) + f" of {total:.1f} ms")
+
+
+def profile_danube() -> None:
     cfg = get_arch_config(serve.ARCH)
-    print(f"[setup] {smi}; {serve.ARCH} full width, B={B} prompt {P} gen {G}")
+    print(f"[setup] {serve.ARCH} full width, B={B} prompt {P} gen {G}")
     with torch.inference_mode():
         model, params = serve.random_model(cfg, serve.SEED, "cuda")
         prompts = serve.random_prompts(cfg, B, P, serve.SEED, "cuda")
@@ -73,6 +113,20 @@ def main() -> None:
                 model.decode_step(params, cache, {"token": token}, t)
 
         profiled(decode, f"decode x{DECODE_STEPS}")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"[setup] {smi}; tf32 off")
+    profile_danube()
+    torch.cuda.empty_cache()
+    profile_mamba()
 
 
 if __name__ == "__main__":

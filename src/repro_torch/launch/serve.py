@@ -9,11 +9,15 @@ is present. Weights are random, drawn on the run's device from seed
 ``SEED``, as are the prompts. Without ``--full`` it serves the
 architecture's smoke config.
 
-The prefill goes through ``build_model(cfg, use_pallas=True)``, so every
-layer's attention runs the hand-written flash kernel on the card, and reads
-only the last position's logits (``last_only``): greedy decoding needs no
-more. Its ``(k, v)`` per layer go into the ``{"k", "v"}`` cache slots
-``[0, P)``, then each decode step writes slot ``t``.
+The prefill of an attention model goes through ``build_model(cfg,
+use_pallas=True)``, so every layer's attention runs the hand-written flash
+kernel on the card, and reads only the last position's logits
+(``last_only``): greedy decoding needs no more. Its ``(k, v)`` per layer go
+into the ``{"k", "v"}`` cache slots ``[0, P)``, then each decode step writes
+slot ``t``. An SSM (``family == "ssm"``, mamba2) prefills by stepping
+``decode_step`` over the prompt, as the reference's serve does (its state
+is O(1)), so it launches no kernel; its full-sequence forward, which runs
+the SSD-scan kernel, is the scoring path (``model.forward``).
 """
 from __future__ import annotations
 
@@ -33,12 +37,16 @@ SEED = 0
 # profile_serve profiles: arch, prompts, prompt length, new tokens each
 ARCH = "h2o-danube-1.8b"
 BATCH, PROMPT_LEN, GEN = 4, 4608, 32
+# the SSM's main path: its full-sequence scoring forward through the SSD
+# kernel at the same BATCH x PROMPT_LEN, 18 chunks of 256 (``generate``
+# steps an SSM token by token and never runs the kernel)
+SSM_ARCH = "mamba2-2.7b"
 
 
 def random_model(cfg, seed: int, device):
-    """``(model, params)``: the model through the flash kernel
-    (``use_pallas=True``) and random weights drawn on ``device`` from
-    ``seed``."""
+    """``(model, params)``: the model through the hand-written kernels
+    (``use_pallas=True``: flash attention, or the SSD scan) and random
+    weights drawn on ``device`` from ``seed``."""
     model = build_model(cfg, use_pallas=True)
     gen = torch.Generator(device=device).manual_seed(seed)
     return model, model.init(gen)
@@ -67,7 +75,8 @@ def _sync(device) -> None:
 
 def generate(model, params, prompts, gen: int) -> dict:
     """Prefill ``prompts`` (B, P), then greedy-decode to ``gen`` new tokens
-    per sequence (the first from the prefill's logits).
+    per sequence (the first from the prefill's logits). An SSM's prefill
+    steps ``decode_step`` over the prompt, as the reference's serve does.
 
     Returns ``tokens`` (B, gen), ``logits`` (B, gen, vocab_padded) fp32 (the
     logits each token was picked from), ``prefill_ms``, ``decode_s`` (the
@@ -78,11 +87,17 @@ def generate(model, params, prompts, gen: int) -> dict:
     B, P = prompts.shape
     _sync(dev)
     launches0, t0 = FLASH.launches, time.perf_counter()
-    logits, _, pcache = model.forward(params, {"tokens": prompts},
-                                      return_cache=True, last_only=True)
-    cache = model.init_cache(B, P + gen, device=dev)
-    place_prefill(cache, pcache)
-    del pcache
+    if cfg.family == "ssm":
+        cache = model.init_cache(B, P + gen, device=dev)
+        for t in range(P):
+            logits, cache = model.decode_step(
+                params, cache, {"token": prompts[:, t:t + 1]}, t)
+    else:
+        logits, _, pcache = model.forward(params, {"tokens": prompts},
+                                          return_cache=True, last_only=True)
+        cache = model.init_cache(B, P + gen, device=dev)
+        place_prefill(cache, pcache)
+        del pcache
     out = [torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]]
     steps = [logits[:, -1]]
     _sync(dev)

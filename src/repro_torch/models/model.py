@@ -33,8 +33,9 @@ def _loss_not_ported(*_args, **_kwargs):
 
 
 def build_model(cfg: ArchConfig, *, use_pallas: bool = False) -> Model:
-    """``use_pallas=True`` (the reference's keyword) sends every prefill
-    attention through the hand-written flash kernel."""
+    """``use_pallas=True`` (the reference's keyword) sends every full-sequence
+    attention through the hand-written flash kernel, and every mamba layer's
+    SSD scan through the hand-written SSD-scan kernel."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   f"not ported yet (ROADMAP A11)")

@@ -1,19 +1,20 @@
 """Decoder-only LM assembly (port of ``repro/models/transformer.py``), for
 the uniform block pattern: every layer an attention mixer and a dense MLP
-(h2o-danube and the other dense GQA decoders).
+(h2o-danube and the other dense GQA decoders), or every layer a mamba mixer
+and no FFN (mamba2).
 
 Parameters keep the reference's keys and layout: ``blocks`` holds each leaf
 stacked over a leading layer axis, and a Python loop over the layers takes
-the place of ``jax.lax.scan``. Caches are ``{"blocks": {"k", "v"}}`` with
-the same leading axis; ``decode_step`` writes into them in place.
+the place of ``jax.lax.scan``. Caches are ``{"blocks": {"k", "v"}}``, or
+``{"blocks": {"conv", "ssm"}}`` for mamba, with the same leading axis;
+``decode_step`` writes into them in place.
 
 Not ported yet, and raising where reached: the gemma2 ``pair_lg`` and
 jamba ``jamba8`` patterns, deepseek's dense prologue, MLA and MoE (ROADMAP
-A11), the mamba mixer (ROADMAP B4), and the training entries ``loss_fn`` /
-``chunked_xent`` (the training slice). Batches carry token ids: the
-vision/audio stubs' ``embeds`` and M-RoPE's ``positions`` wait for ROADMAP
-A11. ``cfg.remat`` has no effect: the
-port has no training path yet.
+A11), and the training entries ``loss_fn`` / ``chunked_xent`` (the training
+slice). Batches carry token ids: the vision/audio stubs' ``embeds`` and
+M-RoPE's ``positions`` wait for ROADMAP A11. ``cfg.remat`` has no effect:
+the port has no training path yet.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -68,11 +70,9 @@ def _ported_blocks(cfg) -> int:
     if pattern == "pair_lg":
         missing.append("the gemma2 pair_lg pattern (ROADMAP A11)")
     if pattern == "jamba8":
-        missing.append("the jamba8 hybrid pattern (ROADMAP A11, after B4)")
+        missing.append("the jamba8 hybrid pattern (ROADMAP A11)")
     if prologue:
         missing.append("the dense prologue layer (ROADMAP A11)")
-    if mixer == "mamba":
-        missing.append("the mamba mixer (ROADMAP B4)")
     if mixer == "mla":
         missing.append("MLA (ROADMAP A11)")
     if ffn == "moe":
@@ -110,11 +110,34 @@ def _post_norm(cfg, p, y):
     return y
 
 
-def _apply_mixer(cfg, p, x, positions, *, use_pallas=False):
-    """Full-sequence attention sub-layer. Returns (residual_out, (k, v))."""
-    y, cache = A.gqa_forward(cfg, p, _pre_norm(cfg, p, x), positions,
-                             use_pallas=use_pallas)
+def _mixer_init(cfg, gen, dtype, kind: str):
+    init = M.mamba_init if kind == "mamba" else A.gqa_init
+    return {**init(cfg, gen, dtype), **_norms(cfg, dtype, gen.device)}
+
+
+def _apply_mixer(cfg, p, x, positions, kind, *, use_pallas=False):
+    """Full-sequence mixer sub-layer. Returns (residual_out, cache entry):
+    ``(k, v)`` for attention, None for mamba (as in the reference)."""
+    h = _pre_norm(cfg, p, x)
+    if kind == "mamba":
+        y, cache = M.mamba_forward(cfg, p, h, use_pallas=use_pallas), None
+    else:
+        y, cache = A.gqa_forward(cfg, p, h, positions, use_pallas=use_pallas)
     return x + _post_norm(cfg, p, y), cache
+
+
+def _apply_mixer_decode(cfg, p, x, cache, pos, positions, kind):
+    """One-token mixer sub-layer. ``cache`` is this layer's slice of the
+    stacked cache, written in place."""
+    h = _pre_norm(cfg, p, x)
+    if kind == "mamba":
+        y, new = M.mamba_decode(cfg, p, h, cache)
+        cache["conv"].copy_(new["conv"])
+        cache["ssm"].copy_(new["ssm"])
+    else:
+        y, _, _ = A.gqa_decode(cfg, p, h, cache["k"], cache["v"], pos,
+                               positions)
+    return x + _post_norm(cfg, p, y)
 
 
 def _apply_ffn(cfg, p, x):
@@ -142,10 +165,16 @@ def _layer(tree, i: int):
 
 
 def init_cache(cfg, batch: int, seq: int, dtype=None, device=None):
-    """Stacked-block KV cache (leading axis = n_blocks), zeros."""
+    """Stacked-block KV / state cache (leading axis = n_blocks), zeros. A
+    mamba state's ``ssm`` leaf is fp32 whatever ``dtype`` is."""
     n_blocks = _ported_blocks(cfg)
-    shape = (n_blocks, batch, seq, cfg.n_kv_heads, cfg.head_dim)
     dtype = dtype or _dtype(cfg)
+    if _layer_kinds(cfg)[0] == "mamba":
+        one = M.mamba_state_init(cfg, batch, dtype, device)
+        return {"blocks": {k: torch.zeros((n_blocks, *v.shape), dtype=v.dtype,
+                                          device=device)
+                           for k, v in one.items()}}
+    shape = (n_blocks, batch, seq, cfg.n_kv_heads, cfg.head_dim)
     return {"blocks": {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device)}}
@@ -161,10 +190,14 @@ def init_params(cfg, gen: torch.Generator) -> Dict[str, Any]:
     its device (a CUDA generator draws a full-width model on the card)."""
     dtype, dev = _dtype(cfg), gen.device
     n_blocks = _ported_blocks(cfg)
-    blocks = [{"mixer": {**A.gqa_init(cfg, gen, dtype), **_norms(cfg, dtype, dev)},
-               "ffn": {**L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
-                       **_norms(cfg, dtype, dev)}}
-              for _ in range(n_blocks)]
+    mixer, ffn = _layer_kinds(cfg)
+    blocks = []
+    for _ in range(n_blocks):
+        block = {"mixer": _mixer_init(cfg, gen, dtype, mixer)}
+        if ffn:
+            block["ffn"] = {**L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
+                            **_norms(cfg, dtype, dev)}
+        blocks.append(block)
     params: Dict[str, Any] = {
         "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype),
         "blocks": _stack(blocks),
@@ -200,17 +233,20 @@ def _embed(cfg, params, tokens):
 
 
 def _trunk(cfg, params, batch, *, use_pallas: bool, keep_cache: bool):
-    """Embedding, every block, final norm. Returns (x, [(k, v) per layer])."""
+    """Embedding, every block, final norm. Returns (x, [cache entry per
+    layer])."""
     n_blocks = _ported_blocks(cfg)
+    mixer, ffn = _layer_kinds(cfg)
     x = _embed(cfg, params, batch["tokens"])
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     caches = []
     for i in range(n_blocks):
         bp = _layer(params["blocks"], i)
-        x, kv = _apply_mixer(cfg, bp["mixer"], x, positions,
+        x, kv = _apply_mixer(cfg, bp["mixer"], x, positions, mixer,
                              use_pallas=use_pallas)
-        x = _apply_ffn(cfg, bp["ffn"], x)
+        if ffn:
+            x = _apply_ffn(cfg, bp["ffn"], x)
         if keep_cache:
             caches.append(kv)
     return _final_norm(cfg, params, x), caches
@@ -222,13 +258,16 @@ def forward(cfg, params, batch, *, return_cache: bool = False,
     Returns (logits, aux_loss[, cache]). ``last_only`` applies the LM head to
     the final position only (serving-prefill semantics — avoids materializing
     (B, S, V) logits). The cache is ``{"blocks": (k, v)}``, each (n_blocks,
-    B, S, Hkv, hd), as the reference's scan stacks the ``(k, v)`` tuples."""
+    B, S, Hkv, hd), as the reference's scan stacks the ``(k, v)`` tuples;
+    ``{"blocks": None}`` for mamba, whose forward keeps no state."""
     x, caches = _trunk(cfg, params, batch, use_pallas=use_pallas,
                        keep_cache=return_cache)
     if last_only:
         x = x[:, -1:]
     logits = _logits(cfg, params, x)
     if return_cache:
+        if caches[0] is None:
+            return logits, 0.0, {"blocks": None}
         ks, vs = zip(*caches)
         return logits, 0.0, {"blocks": (torch.stack(ks), torch.stack(vs))}
     return logits, 0.0
@@ -239,17 +278,17 @@ def decode_step(cfg, params, cache, batch, pos: int):
     ``pos``: index the new token is written at. Returns (logits (B,1,V),
     cache), the cache updated in place."""
     n_blocks = _ported_blocks(cfg)
+    mixer, ffn = _layer_kinds(cfg)
     x = _embed(cfg, params, batch["token"])
     positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,
                            device=x.device)
-    kc, vc = cache["blocks"]["k"], cache["blocks"]["v"]
     for i in range(n_blocks):
         bp = _layer(params["blocks"], i)
-        p = bp["mixer"]
-        y, _, _ = A.gqa_decode(cfg, p, _pre_norm(cfg, p, x), kc[i], vc[i],
-                               pos, positions)
-        x = x + _post_norm(cfg, p, y)
-        x = _apply_ffn(cfg, bp["ffn"], x)
+        x = _apply_mixer_decode(cfg, bp["mixer"], x,
+                                _layer(cache["blocks"], i), pos, positions,
+                                mixer)
+        if ffn:
+            x = _apply_ffn(cfg, bp["ffn"], x)
     x = _final_norm(cfg, params, x)
     return _logits(cfg, params, x), cache
 

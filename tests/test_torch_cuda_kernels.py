@@ -16,6 +16,7 @@ import torch
 sr = importlib.import_module("repro_torch.kernels.segment_reduce")
 fr = importlib.import_module("repro_torch.kernels.fedavg_reduce")
 fa = importlib.import_module("repro_torch.kernels.flash_attention")
+ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
 
 pytestmark = pytest.mark.cuda
 
@@ -145,3 +146,71 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     strided = torch.ones((1, 8, 32, 2), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, strided, strided)
+
+
+# the cases of tests/test_kernels.py: B, S, H, P, N, chunk
+SSD_CASES = [
+    (1, 64, 2, 8, 4, 16),
+    (2, 128, 4, 16, 8, 32),
+    (1, 256, 8, 32, 16, 64),
+    (2, 96, 2, 64, 128, 32),
+]
+
+
+def _ssd_inputs(B, S, H, P, N, cuda, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen))
+    A = -torch.exp(torch.randn((H,), generator=gen))
+    bm = torch.randn((B, S, N), generator=gen)
+    cm = torch.randn((B, S, N), generator=gen)
+    return [t.to(cuda) for t in (x, dt, A, bm, cm)]
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=[str(c) for c in SSD_CASES])
+def test_ssd_kernel_matches_plain(cuda, case):
+    """At the reference tests' tolerance, atol 2e-4 / rtol 2e-3, and
+    bitwise repeatable (no atomics)."""
+    *shape, chunk = case
+    args = _ssd_inputs(*shape, cuda, sum(case))
+    before = ssd.KERNEL.launches
+    out = ssd.ssd_scan(*args, chunk=chunk)
+    again = ssd.ssd_scan(*args, chunk=chunk)
+    assert ssd.KERNEL.launches == before + 2
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ssd.ssd_scan_plain(*args, chunk),
+                               rtol=2e-3, atol=2e-4)
+    assert torch.equal(out, again)
+
+
+def test_ssd_kernel_strided_ragged(cuda):
+    """x, Bm and Cm as views of one conv output, as mamba_forward makes
+    them; P = 80 (a second, partial column slice), N = 100 (not a multiple
+    of 16) and a chunk of 100 (not a multiple of 64)."""
+    B, S, H, P, N, chunk = 2, 300, 3, 80, 100, 100
+    gen = torch.Generator().manual_seed(9)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=gen).to(cuda)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    bm, cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    assert not x.is_contiguous() and not bm.is_contiguous()
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen))
+    A = -torch.linspace(1.0, 16.0, H)
+    dt, A = dt.to(cuda), A.to(cuda)
+    out = ssd.ssd_scan(x, dt, A, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ssd.ssd_scan_plain(x, dt, A, bm, cm, chunk),
+                               rtol=2e-3, atol=2e-4)
+
+
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 8, 4, cuda, 0)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x.double(), dt, A, bm, cm, chunk=32)
+    with pytest.raises(ValueError, match="S % chunk"):
+        ssd.ssd_scan(x, dt, A, bm, cm, chunk=48)
+    wide = torch.ones((1, 64, 200), device=cuda)
+    with pytest.raises(ValueError, match="N"):
+        ssd.ssd_scan(x, dt, A, wide, wide, chunk=32)
+    strided = torch.ones((1, 4, 64), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(x, dt, A, strided, strided, chunk=32)

@@ -5,8 +5,8 @@ An AST scan shows that no module of ``src/repro_torch`` and not
 no CUDA device present, the entry points that default to ``cuda`` raise. The
 kernel wrappers run their plain versions only because the tensors they are
 given lie on the CPU; ``tests/test_torch_segment_reduce.py``,
-``tests/test_torch_fedavg_reduce.py`` and ``tests/test_torch_flash_attention.py``
-check that no launch is counted then.
+``tests/test_torch_fedavg_reduce.py``, ``tests/test_torch_flash_attention.py``
+and ``tests/test_torch_ssd_scan.py`` check that no launch is counted then.
 """
 import ast
 import importlib
@@ -91,9 +91,10 @@ def test_lm_entry_points_raise_without_cuda():
     _no_card()
     from repro_torch.launch import serve
 
-    for argv in ([], ["--full"], ["--device", "cuda"]):
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            serve.main(["--arch", "h2o-danube-1.8b", *argv])
+    for arch in ("h2o-danube-1.8b", "mamba2-2.7b"):
+        for argv in ([], ["--full"], ["--device", "cuda"]):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                serve.main(["--arch", arch, *argv])
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
     q, k = torch.ones((1, 4, 2, 8)), torch.ones((1, 4, 1, 8))
     before = fa.KERNEL.launches
@@ -101,3 +102,11 @@ def test_lm_entry_points_raise_without_cuda():
     assert fa.KERNEL.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(q.to("meta"), k, k)
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+    x, dt, A = torch.ones((1, 8, 2, 4)), torch.ones((1, 8, 2)), -torch.ones(2)
+    bc = torch.ones((1, 8, 3))
+    before = ssd.KERNEL.launches
+    assert ssd.ssd_scan(x, dt, A, bc, bc, chunk=4).shape == x.shape
+    assert ssd.KERNEL.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan(x.to("meta"), dt, A, bc, bc, chunk=4)

@@ -64,7 +64,7 @@ def test_configs_match_reference():
 
 
 def test_registry_lists_only_ported_archs():
-    assert tconfigs.ARCH_NAMES == (ARCH,)
+    assert tconfigs.ARCH_NAMES == (ARCH, "mamba2-2.7b")
     assert set(tconfigs.ARCH_NAMES) | set(tconfigs.NOT_PORTED) == \
         set(jconfigs.ARCH_NAMES)
     for name in tconfigs.NOT_PORTED:
@@ -369,7 +369,7 @@ def test_unported_paths_raise():
     cfg = tconfigs.get_smoke_config(ARCH)
     for over, what in ((dict(use_mla=True), "MLA"),
                        (dict(n_experts=4, moe_top_k=2), "MoE"),
-                       (dict(family="ssm"), "mamba"),
+                       (dict(attn_every=8, n_layers=8), "jamba8"),
                        (dict(attn_pattern="local_global"), "pair_lg")):
         with pytest.raises(NotImplementedError, match=what):
             TT.init_params(dataclasses.replace(cfg, **over),
