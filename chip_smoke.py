@@ -12,12 +12,13 @@ sources, in parallel, and drives the port's three paths:
   three full-width rounds run through ``DTWNSystem``, and one GPU round is
   checked against the same round on the CPU;
 * the LM serving path: the flash-attention kernel is held against its plain
-  version on the reference tests' cases and at the prefill's shape, and
-  timed there; ``repro_torch.launch.serve`` serves h2o-danube-1.8b at full
-  width (random weights from a seed, 4 prompts of 4608 tokens, 32 new
-  tokens each); its last-position logits are checked against the plain
-  attention path on the card, and a 2-layer cut of it on the GPU against
-  the CPU;
+  version on the reference tests' cases (fp32 through its CUDA-core
+  variant, bf16 through its tensor-core variant) and at the prefill's shape
+  in bf16, and timed there; ``repro_torch.launch.serve`` serves
+  h2o-danube-1.8b at full width (random weights from a seed, 4 prompts of
+  4608 tokens, 32 new tokens each; the tensor-core variant once per layer);
+  its last-position logits are checked against the plain attention path on
+  the card, and a 2-layer fp32 cut of it on the GPU against the CPU;
 * mamba2-2.7b's scoring forward: the SSD-scan kernel is held against its
   plain version on the reference tests' cases and at the forward's shape,
   and timed there; ``build_model(cfg, use_pallas=True).forward`` runs at
@@ -412,21 +413,29 @@ def flash_main(serve) -> dict:
 
 
 def phase_flash_check(torch, fa) -> None:
-    """Kernel vs plain version on the reference tests' six cases, in fp32
-    at their tolerance."""
+    """Kernel vs plain version on the reference tests' six cases: in fp32
+    through the CUDA-core variant at the reference tests' 2e-5, and in bf16
+    through the tensor-core variant at ROADMAP B3's 3e-2 (the kernel rounds
+    P to bf16 before P.V, the plain version computes in fp32)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for case in FLASH_CASES:
-        *shape, causal, window, cap = case
-        q, k, v = _flash_inputs(torch, gen, *shape, torch.float32)
-        kw = dict(causal=causal, window=window, logit_softcap=cap)
-        out = fa.flash_attention(q, k, v, **kw)
-        plain = fa.flash_attention_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = float((out - plain).abs().max())
-        torch.testing.assert_close(out, plain, rtol=FLASH_TOL_F32,
-                                   atol=FLASH_TOL_F32)
-        log(f"[flash] fp32 {case}: max_abs_err={err:.3e}")
-    log(f"[flash] ok: fp32 cases within {FLASH_TOL_F32} of the plain version")
+    for dtype, variant, tol in ((torch.float32, "fp32", FLASH_TOL_F32),
+                                (torch.bfloat16, "bf16_tc", FLASH_TOL_BF16)):
+        for case in FLASH_CASES:
+            *shape, causal, window, cap = case
+            q, k, v = _flash_inputs(torch, gen, *shape, dtype)
+            kw = dict(causal=causal, window=window, logit_softcap=cap)
+            before = fa.KERNEL.variant_launches[variant]
+            out = fa.flash_attention(q, k, v, **kw)
+            if fa.KERNEL.variant_launches[variant] != before + 1:
+                raise AssertionError(f"{dtype} did not launch the {variant} "
+                                     f"variant")
+            plain = fa.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = float((out.float() - plain.float()).abs().max())
+            torch.testing.assert_close(out, plain, rtol=tol, atol=tol)
+            log(f"[flash] {variant} {case}: max_abs_err={err:.3e}")
+        log(f"[flash] ok: {dtype} cases within {tol} of the plain version "
+            f"through the {variant} variant")
 
 
 def phase_flash_main(torch, fa, m) -> dict:
@@ -438,7 +447,11 @@ def phase_flash_main(torch, fa, m) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(4)
     q, k, v = _flash_inputs(torch, gen, m["B"], m["S"], m["S"], m["Hq"],
                             m["Hkv"], m["hd"], torch.bfloat16, q_std=4.0)
+    before = fa.KERNEL.variant_launches["bf16_tc"]
     out = fa.flash_attention(q, k, v, window=m["window"])
+    if fa.KERNEL.variant_launches["bf16_tc"] != before + 1:
+        raise AssertionError("the prefill's call did not launch the bf16 "
+                             "tensor-core variant")
     plain = fa.flash_attention_plain(q, k, v, window=m["window"])
     torch.cuda.synchronize()
     err = float((out.float() - plain.float()).abs().max())
@@ -475,10 +488,13 @@ def phase_flash_main(torch, fa, m) -> dict:
                  batch=4, reps=3)
     row["bound_fp32_ms"] = bound_ms(n_bytes, n_ops)[0]
     row.update(pairs=pairs, ops=n_ops, bytes=n_bytes, max_abs_err=err)
+    row["tflops"] = n_ops / row["ms"] / 1e9
     log(f"[timing] flash_attention: band {pairs} (q, k) pairs, {n_ops:.4e} "
         f"ops, {n_bytes} bytes; bound {row['bound_ms']:.4f} ms at the bf16 "
         f"tensor-core peak, {row['bound_fp32_ms']:.4f} ms at the fp32 peak; "
-        f"kernel at {n_ops / row['ms'] / 1e9:.2f} TFLOP/s")
+        f"kernel at {row['tflops']:.2f} TFLOP/s, "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of its bf16 bound, "
+        f"{row['ms'] / row['bound_fp32_ms']:.3f} of the fp32 bound")
     del q, k, v, mask
     torch.cuda.empty_cache()
     return row
@@ -486,10 +502,10 @@ def phase_flash_main(torch, fa, m) -> dict:
 
 def _reset(kernels) -> None:
     for k in kernels:
-        k.launches = 0
+        k.reset()
 
 
-def phase_serve(torch, kernels, serve) -> dict:
+def phase_serve(torch, kernels, fa, serve) -> dict:
     """The serving CLI at full width, with every count set to 0 just
     before and read just after."""
     argv = ["--arch", serve.ARCH, "--full", "--batch", str(serve.BATCH),
@@ -499,15 +515,21 @@ def phase_serve(torch, kernels, serve) -> dict:
     torch.cuda.reset_peak_memory_stats()
     res = serve.main(argv)
     launches = {k.source.stem: k.launches for k in kernels}
+    variants = dict(fa.KERNEL.variant_launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_layers = res["cfg"].n_layers
     log(f"[serve] kernel launches in the serving run: {json.dumps(launches)}; "
-        f"peak device memory {peak:.2f} GiB")
+        f"flash variants {json.dumps(variants)}; peak device memory "
+        f"{peak:.2f} GiB")
     if launches["flash_attention"] != n_layers or res["flash_launches"] != n_layers:
         raise AssertionError(f"the prefill launched the flash kernel "
                              f"{res['flash_launches']} times "
                              f"({launches['flash_attention']} in the run), "
                              f"not once per layer ({n_layers})")
+    if variants["bf16_tc"] != n_layers:
+        raise AssertionError(f"the prefill launched the bf16 tensor-core "
+                             f"variant {variants['bf16_tc']} times, not once "
+                             f"per layer ({n_layers})")
     tokens, logits = res["tokens"], res["logits"]
     if tuple(tokens.shape) != (serve.BATCH, serve.GEN):
         raise AssertionError(f"generated {tuple(tokens.shape)}")
@@ -521,7 +543,7 @@ def phase_serve(torch, kernels, serve) -> dict:
         f"prefill {res['prefill_ms']:.1f} ms, decode "
         f"{res['decode_s'] * 1e3:.1f} ms for {serve.GEN - 1} steps ({res['decode_tok_s']:.1f} tok/s)")
     return {"launches": launches["flash_attention"],
-            "prefill_ms": res["prefill_ms"], "decode_s": res["decode_s"],
+            "variant_launches": variants, "prefill_ms": res["prefill_ms"], "decode_s": res["decode_s"],
             "decode_tok_s": res["decode_tok_s"], "peak_gib": peak}
 
 
@@ -893,7 +915,7 @@ def main() -> int:
     launches = phase_slice(torch, sr, fr, data, kernels)
     phase_gpu_vs_cpu(torch, data)
     del data
-    served = phase_serve(torch, kernels, serve)
+    served = phase_serve(torch, kernels, fa, serve)
     phase_serve_kernel_vs_plain(torch, serve)
     phase_serve_gpu_vs_cpu(torch, fa, serve)
     forward = phase_mamba_forward(torch, kernels, serve)
@@ -922,11 +944,14 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:32",
-         "launches": served["launches"], "max_abs_err": flash["max_abs_err"],
+         "variant": "bf16_tc",
+         "launches": served["launches"],
+         "variant_launches": served["variant_launches"],
+         "max_abs_err": flash["max_abs_err"],
          "ms": flash["ms"], "plain_ms": flash["plain_ms"],
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"], "call_ms": flash["call_ms"],
-         "bound_fp32_ms": flash["bound_fp32_ms"],
+         "bound_fp32_ms": flash["bound_fp32_ms"], "tflops": flash["tflops"],
          "shape": {**main_call, "dtype": "bfloat16", "causal": True}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

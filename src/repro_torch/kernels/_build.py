@@ -37,9 +37,9 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def _target(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _target(source: Path, flags: Tuple[str, ...] = ()) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(
+        NVCC_FLAGS + flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
@@ -48,21 +48,35 @@ class CudaKernel:
 
     ``signatures`` maps each exported C function to ``(restype, argtypes)``.
     ``launches`` is a plain counter that the Python wrapper bumps each time
-    it launches the kernel, and nowhere else.
+    it launches the kernel, and nowhere else; where the library holds
+    several variants of the kernel, ``variant_launches`` counts each.
+    ``flags`` are extra ``nvcc`` flags (``-D`` settings of the source).
     """
 
     def __init__(self, source: str,
-                 signatures: Dict[str, Tuple[object, Tuple[object, ...]]]):
+                 signatures: Dict[str, Tuple[object, Tuple[object, ...]]],
+                 variants: Tuple[str, ...] = (), flags: Tuple[str, ...] = ()):
         self.source = CSRC / source
         self.signatures = {
             **signatures,
             "repro_cuda_error_string": (ctypes.c_char_p, (ctypes.c_int,))}
+        self.flags = tuple(flags)
         self.launches = 0
+        self.variant_launches = dict.fromkeys(variants, 0)
         self._lib = None
+
+    def count(self, variant: str) -> None:
+        """One launch of ``variant``."""
+        self.launches += 1
+        self.variant_launches[variant] += 1
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.variant_launches = dict.fromkeys(self.variant_launches, 0)
 
     @property
     def target(self) -> Path:
-        return _target(self.source)
+        return _target(self.source, self.flags)
 
     @property
     def build_log(self) -> Path:
@@ -100,7 +114,7 @@ def build_all(kernels: Iterable[CudaKernel]) -> None:
         if out.is_file():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
+        cmd = [nvcc, *NVCC_FLAGS, *k.flags, "-o", str(tmp), str(k.source)]
         procs.append((k, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

@@ -6,7 +6,9 @@ soft-cap and GQA (G query heads share one KV head), plus ``q_offset`` and
 ragged Sq / Sk.
 
 :func:`flash_attention` launches the hand-written Hopper kernel
-(``csrc/flash_attention.cu``) on CUDA tensors, or raises; on CPU tensors it
+(``csrc/flash_attention.cu``) on CUDA tensors, or raises: bf16 inputs go to
+its tensor-core variant (``bf16_tc``), fp32 inputs to its CUDA-core variant
+(``fp32``), each counted in ``KERNEL.variant_launches``. On CPU tensors it
 runs :func:`flash_attention_plain`, the same function in plain PyTorch.
 """
 from __future__ import annotations
@@ -26,9 +28,10 @@ KERNEL = CudaKernel("flash_attention.cu", {
         _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
         _L, _L, _L, _L, _L, _L, _L, _L, _L,
         ctypes.c_float, ctypes.c_float, _I, _I, _I, _P)),
-})
+}, variants=("bf16_tc", "fp32"))
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (the C entry's dtype code, the variant it launches)
+_DTYPES = {torch.float32: (0, "fp32"), torch.bfloat16: (1, "bf16_tc")}
 MAX_HEAD_DIM = 128
 
 
@@ -54,7 +57,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     On CUDA: fp32 or bf16, one dtype for all three, ``vd == hd <= 128``,
     ``Hq % Hkv == 0``, the head-dim stride 1 (other strides are read as
-    they are), non-empty. Anything else raises; there is no fallback.
+    they are), non-empty; in bf16 every row 16-byte aligned (the data
+    pointers, and the batch, sequence and head strides of the axes longer
+    than 1 multiples of 8 elements). Anything else raises; there is no
+    fallback.
     """
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -81,16 +87,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash kernel takes q, k, v whose head dim is "
                          "contiguous")
+    # an axis of length 1 is only ever read at index 0: its stride is moot
+    strides = [[0 if t.shape[i] == 1 else t.stride(i) for i in range(3)]
+               for t in (q, k, v)]
+    code, variant = _DTYPES[q.dtype]
+    if variant == "bf16_tc" and any(
+            t.data_ptr() % 16 or any(st % 8 for st in ts)
+            for t, ts in zip((q, k, v), strides)):
+        raise ValueError("the bf16 flash kernel copies 16-byte chunks: q, k "
+                         "and v need 16-byte-aligned rows (data pointers, "
+                         "and strides that are multiples of 8 elements)")
     if logit_softcap is not None and not logit_softcap > 0:
         raise ValueError(f"logit_softcap must be positive, got {logit_softcap}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     rc = KERNEL.lib().flash_attention_fwd(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Sq, Sk, Hq, Hkv, hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), float(logit_softcap or 0.0), int(bool(causal)),
-        int(window), int(q_offset), stream_ptr())
-    KERNEL.launches += 1
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), B, Sq, Sk, Hq, Hkv, hd, *strides[0], *strides[1],
+        *strides[2], float(scale), float(logit_softcap or 0.0),
+        int(bool(causal)), int(window), int(q_offset), stream_ptr())
     KERNEL.check(rc, "flash_attention kernel")
+    KERNEL.count(variant)
     return out

@@ -109,17 +109,37 @@ def test_flash_kernel_matches_plain_fp32(cuda, case):
                                rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("case", FLASH_CASES, ids=[str(c) for c in FLASH_CASES])
+def test_flash_kernel_matches_plain_bf16(cuda, case):
+    """bf16 through the tensor-core variant, at ROADMAP B3's bf16
+    tolerance, 3e-2: the kernel rounds P to bf16 before P.V, the plain
+    version computes in fp32; both round the output once."""
+    *_, causal, window, cap = case
+    q, k, v = _flash_inputs(case, torch.bfloat16, cuda, sum(case[:6]))
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    before = dict(fa.KERNEL.variant_launches)
+    out = fa.flash_attention(q, k, v, **kw)
+    assert fa.KERNEL.variant_launches == {
+        "bf16_tc": before["bf16_tc"] + 1, "fp32": before["fp32"]}
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v, **kw),
+                               rtol=3e-2, atol=3e-2)
+
+
 def test_flash_kernel_bf16_gqa_window_strided(cuda):
     """bf16 at the serving path's head dim, GQA 4, window shorter than the
     sequence, q_offset, and q, k, v as views of one fused projection (the
-    kernel reads their strides). Both versions round once from fp32 math:
-    3e-2, ROADMAP B3's bf16 tolerance."""
+    kernel reads their strides). The kernel rounds P to bf16, the plain
+    version does not; both round the output once: 3e-2, ROADMAP B3's bf16
+    tolerance."""
     B, S, Hq, Hkv, hd = 2, 700, 8, 2, 80
     gen = torch.Generator().manual_seed(5)
     qkv = torch.randn((B, S, Hq + 2 * Hkv, hd), generator=gen).to(
         cuda, torch.bfloat16)
     q, k, v = qkv[:, :, :Hq], qkv[:, :, Hq:Hq + Hkv], qkv[:, :, Hq + Hkv:]
     assert not q.is_contiguous()
+    before = fa.KERNEL.variant_launches["bf16_tc"]
     for kw in (dict(window=256), dict(window=100, q_offset=0),
                dict(window=0, causal=False)):
         out = fa.flash_attention(q, k, v, **kw)
@@ -130,6 +150,29 @@ def test_flash_kernel_bf16_gqa_window_strided(cuda):
     kw = dict(window=256, q_offset=S - 60)
     torch.testing.assert_close(fa.flash_attention(tail, k, v, **kw),
                                fa.flash_attention_plain(tail, k, v, **kw),
+                               rtol=3e-2, atol=3e-2)
+    assert fa.KERNEL.variant_launches["bf16_tc"] == before + 4
+
+
+@pytest.mark.parametrize("sq,sk,q_offset,causal,window", [
+    (77, 333, 256, True, 0), (77, 333, 200, True, 90), (130, 201, 71, True, 64),
+    (45, 150, 30, False, 0)])
+def test_flash_kernel_bf16_ragged_q_offset(cuda, sq, sk, q_offset, causal,
+                                           window):
+    """hd 80 with Sq and Sk not multiples of 64 and the queries starting at
+    q_offset > 0 (a chunk of a longer prompt), through the tensor-core
+    variant, at 3e-2."""
+    B, Hq, Hkv, hd = 2, 4, 2, 80
+    gen = torch.Generator().manual_seed(sq + sk + q_offset)
+    q = torch.randn((B, sq, Hq, hd), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((B, sk, Hkv, hd), generator=gen).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = fa.KERNEL.variant_launches["bf16_tc"]
+    out = fa.flash_attention(q, k, v, **kw)
+    assert fa.KERNEL.variant_launches["bf16_tc"] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v, **kw),
                                rtol=3e-2, atol=3e-2)
 
 
@@ -146,6 +189,41 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     strided = torch.ones((1, 8, 32, 2), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, strided, strided)
+
+
+def test_flash_kernel_bf16_head_dim_not_multiple_of_8(cuda):
+    """hd 20 as a view of 24-wide rows: the rows are 16-byte aligned, the
+    last 16-byte chunk of each holds 4 values (the copy zero-fills the
+    rest) and the output rows, 40 bytes, are written element by element."""
+    gen = torch.Generator().manual_seed(20)
+    q, k, v = (torch.randn(shape, generator=gen).to(cuda, torch.bfloat16)
+               [..., :20] for shape in ((2, 150, 4, 24), (2, 150, 2, 24),
+                                        (2, 150, 2, 24)))
+    kw = dict(causal=True, window=70)
+    before = fa.KERNEL.variant_launches["bf16_tc"]
+    out = fa.flash_attention(q, k, v, **kw)
+    assert fa.KERNEL.variant_launches["bf16_tc"] == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == (2, 150, 4, 20) and out.is_contiguous()
+    torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v, **kw),
+                               rtol=3e-2, atol=3e-2)
+
+
+def test_flash_kernel_refuses_unaligned_bf16_rows(cuda):
+    """The tensor-core variant copies 16-byte chunks: a bf16 view whose
+    rows do not start on 16 bytes is refused, never launched nor sent to
+    another variant."""
+    k = torch.ones((1, 8, 2, 32), device=cuda, dtype=torch.bfloat16)
+    shifted = torch.ones((1, 8, 4, 40), device=cuda,
+                         dtype=torch.bfloat16)[..., 4:36]  # rows at +8 bytes
+    narrow = torch.ones((1, 8, 4, 36), device=cuda,
+                        dtype=torch.bfloat16)[..., :32]  # 72-byte head stride
+    before = dict(fa.KERNEL.variant_launches)
+    for q in (shifted, narrow):
+        assert q.stride(3) == 1
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(q, k, k)
+    assert fa.KERNEL.variant_launches == before
 
 
 # the cases of tests/test_kernels.py: B, S, H, P, N, chunk

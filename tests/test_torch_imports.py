@@ -110,3 +110,26 @@ def test_lm_entry_points_raise_without_cuda():
     assert ssd.KERNEL.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         ssd.ssd_scan(x.to("meta"), dt, A, bc, bc, chunk=4)
+
+
+def test_kernel_variant_counts_and_build_flags():
+    """A library's launches are counted in all and per variant, and set to
+    0 together; extra nvcc flags give a build of its own."""
+    from repro_torch.kernels import _build
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    assert set(fa.KERNEL.variant_launches) == {"bf16_tc", "fp32"}
+    q = torch.ones((1, 4, 2, 16), dtype=torch.bfloat16)
+    before = dict(fa.KERNEL.variant_launches)
+    fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    assert fa.KERNEL.variant_launches == before  # CPU: the plain version
+    k = _build.CudaKernel("flash_attention.cu", {}, variants=("a", "b"))
+    k.count("a")
+    k.count("a")
+    k.count("b")
+    assert k.launches == 3 and k.variant_launches == {"a": 2, "b": 1}
+    k.reset()
+    assert k.launches == 0 and k.variant_launches == {"a": 0, "b": 0}
+    other = _build.CudaKernel("flash_attention.cu", {},
+                              flags=("-DFLASH_WARPS=4",))
+    assert k.target == fa.KERNEL.target != other.target
