@@ -37,9 +37,9 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def _target(source: Path, flags: Tuple[str, ...] = ()) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(
-        NVCC_FLAGS + flags).encode()).hexdigest()[:16]
+def _target(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
@@ -50,17 +50,15 @@ class CudaKernel:
     ``launches`` is a plain counter that the Python wrapper bumps each time
     it launches the kernel, and nowhere else; where the library holds
     several variants of the kernel, ``variant_launches`` counts each.
-    ``flags`` are extra ``nvcc`` flags (``-D`` settings of the source).
     """
 
     def __init__(self, source: str,
                  signatures: Dict[str, Tuple[object, Tuple[object, ...]]],
-                 variants: Tuple[str, ...] = (), flags: Tuple[str, ...] = ()):
+                 variants: Tuple[str, ...] = ()):
         self.source = CSRC / source
         self.signatures = {
             **signatures,
             "repro_cuda_error_string": (ctypes.c_char_p, (ctypes.c_int,))}
-        self.flags = tuple(flags)
         self.launches = 0
         self.variant_launches = dict.fromkeys(variants, 0)
         self._lib = None
@@ -76,7 +74,7 @@ class CudaKernel:
 
     @property
     def target(self) -> Path:
-        return _target(self.source, self.flags)
+        return _target(self.source)
 
     @property
     def build_log(self) -> Path:
@@ -114,7 +112,7 @@ def build_all(kernels: Iterable[CudaKernel]) -> None:
         if out.is_file():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *k.flags, "-o", str(tmp), str(k.source)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
         procs.append((k, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

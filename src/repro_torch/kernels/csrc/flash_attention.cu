@@ -22,14 +22,14 @@
 // the bf16 call near its bound, and two variants live here, chosen by dtype:
 //
 // bf16: tensor cores (flash_kernel_bf16_tc), FlashAttention-2's shape.
-//   * one block of FLASH_WARPS = 8 warps owns one (batch, query head,
+//   * one block of 8 warps owns one (batch, query head,
 //     128-row q tile); each warp owns 16 query rows and loops over the
 //     64-key tiles of the block's causal / window band. The grid is one
 //     axis with the q tile slowest, so that every head's heaviest tiles go
 //     first and the short causal tiles fill the last wave. Up to hd 80 the
 //     registers are capped at 128 a thread, so that two blocks (16 warps)
-//     share an SM. At the prefill's call 8 warps a block beat 4 by ~15%
-//     (PERF.md; launch/profile_flash.py builds both);
+//     share an SM. At the prefill's call 8 warps a block beat 4 by ~13%
+//     (PERF.md);
 //   * Q, K and V come into shared memory by 16-byte cp.async copies, read
 //     through their strides (rows must be 16-byte aligned; the wrapper
 //     checks). K and V run in a two-stage ring: tile j + 1 is in flight
@@ -84,13 +84,10 @@
 #include <cmath>
 #include <cstdint>
 
-#ifndef FLASH_WARPS
-#define FLASH_WARPS 8  // warps (16 query rows each) in a bf16 block
-#endif
-
 namespace {
 
 constexpr float kNegInf = -2.0e38f;
+constexpr int kWarps = 8;  // warps (16 query rows each) in a bf16 block
 
 struct Params {
   const void* q;
@@ -179,11 +176,11 @@ template <int HD>
 struct TcShape {
   static constexpr int kLd = HD + 8;        // row pitch in elements: 16 bytes of padding
   static constexpr int kChunks = HD / 8;    // 16-byte chunks a row
-  static constexpr int kRows = 16 * FLASH_WARPS;
-  static constexpr int kThreads = 32 * FLASH_WARPS;
+  static constexpr int kRows = 16 * kWarps;
+  static constexpr int kThreads = 32 * kWarps;
   // up to hd 80 the registers are capped at 128 a thread, so that 16 warps
   // share an SM (uncapped, hd 80 takes 160 and leaves 12 or 8)
-  static constexpr int kMinBlocks = HD <= 80 ? 16 / FLASH_WARPS : 1;
+  static constexpr int kMinBlocks = HD <= 80 ? 16 / kWarps : 1;
   static constexpr size_t kTileElems = static_cast<size_t>(kBK) * kLd;
   static constexpr size_t kSmem =
       (static_cast<size_t>(kRows) * kLd + 4 * kTileElems) * sizeof(__nv_bfloat16);

@@ -112,9 +112,9 @@ def test_lm_entry_points_raise_without_cuda():
         ssd.ssd_scan(x.to("meta"), dt, A, bc, bc, chunk=4)
 
 
-def test_kernel_variant_counts_and_build_flags():
+def test_kernel_variant_counts():
     """A library's launches are counted in all and per variant, and set to
-    0 together; extra nvcc flags give a build of its own."""
+    0 together."""
     from repro_torch.kernels import _build
 
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -130,6 +130,4 @@ def test_kernel_variant_counts_and_build_flags():
     assert k.launches == 3 and k.variant_launches == {"a": 2, "b": 1}
     k.reset()
     assert k.launches == 0 and k.variant_launches == {"a": 0, "b": 0}
-    other = _build.CudaKernel("flash_attention.cu", {},
-                              flags=("-DFLASH_WARPS=4",))
-    assert k.target == fa.KERNEL.target != other.target
+    assert k.target == fa.KERNEL.target  # one library a source
