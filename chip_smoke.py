@@ -13,15 +13,18 @@ sources, in parallel, and drives the port's three paths:
   checked against the same round on the CPU;
 * the LM serving path: the flash-attention kernel is held against its plain
   version on the reference tests' cases (fp32 through its CUDA-core
-  variant, bf16 through its tensor-core variant) and at the prefill's shape
-  in bf16, and timed there; ``repro_torch.launch.serve`` serves
+  variant, bf16 through its tensor-core variant), at head dims up to 256,
+  on bf16 views whose rows are not 16-byte aligned, and at the prefill's
+  shape in bf16, and timed there and at gemma2-9b's attention shape (hd
+  256); ``repro_torch.launch.serve`` serves
   h2o-danube-1.8b at full width (random weights from a seed, 4 prompts of
   4608 tokens, 32 new tokens each; the tensor-core variant once per layer);
   its last-position logits are checked against the plain attention path on
   the card, and a 2-layer fp32 cut of it on the GPU against the CPU;
 * mamba2-2.7b's scoring forward: the SSD-scan kernel is held against its
-  plain version on the reference tests' cases and at the forward's shape,
-  and timed there; ``build_model(cfg, use_pallas=True).forward`` runs at
+  plain version on the reference tests' cases (x, B and C in fp32 and in
+  bf16) and at the forward's shape (bf16 x, B and C, as the forward passes
+  them), and timed there, each of its launches too; ``build_model(cfg, use_pallas=True).forward`` runs at
   full width (random bf16 weights from a seed, 4 prompts of 4608 tokens,
   last-position logits) with one kernel launch per layer; its logits are
   checked against the plain-SSD forward on the card, a 2-layer fp32 cut on
@@ -52,6 +55,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 # the CNN's Eq. 4 leaves (fc2_b, conv1_b, conv2_b, fc1_b, conv1_w, fc2_w,
 # conv2_w, fc1_w) and the Eq. 4 weights (K=1): N=10 twins over M=5 BSs
 EQ4_K = (1, 10, 32, 64, 512, 2400, 5120, 51200, 2_097_152)
@@ -76,6 +80,17 @@ FLASH_CASES = [
     (1, 64, 64, 8, 2, 128, True, 0, None),
 ]
 FLASH_TOL_F32, FLASH_TOL_BF16 = 2e-5, 3e-2
+# head dims above 128 (gemma2's 256), in both variants, and bf16 views
+# whose rows are not 16-byte aligned (the wrapper copies them into padded
+# buffers for the same kernel)
+FLASH_WIDE_CASES = [
+    (1, 128, 128, 4, 2, 256, True, 0, 50.0),
+    (2, 200, 200, 4, 4, 256, True, 64, None),
+    (1, 64, 64, 2, 1, 160, False, 0, None),
+]
+# gemma2-9b's prefill attention at one 4608-token prompt: (B, S, Hq, Hkv,
+# hd, window, softcap)
+FLASH_GEMMA = (1, 4608, 16, 8, 256, 4096, 50.0)
 # mamba2's path: the reference tests' SSD cases (B, S, H, P, N, chunk) and
 # tolerance, and the short SSM serving run (prompts, prompt length, new
 # tokens)
@@ -434,8 +449,49 @@ def phase_flash_check(torch, fa) -> None:
             err = float((out.float() - plain.float()).abs().max())
             torch.testing.assert_close(out, plain, rtol=tol, atol=tol)
             log(f"[flash] {variant} {case}: max_abs_err={err:.3e}")
+        for case in FLASH_WIDE_CASES:
+            *shape, causal, window, cap = case
+            q, k, v = _flash_inputs(torch, gen, *shape, dtype)
+            kw = dict(causal=causal, window=window, logit_softcap=cap)
+            err = _flash_close(torch, fa, variant, (q, k, v), kw, tol)
+            log(f"[flash] {variant} {case}: max_abs_err={err:.3e}")
         log(f"[flash] ok: {dtype} cases within {tol} of the plain version "
             f"through the {variant} variant")
+    draw = torch.Generator(device="cuda").manual_seed(7)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=draw, device="cuda").bfloat16()
+    k = bf16(1, 96, 2, 32)
+    views = {
+        "rows at +8 bytes": (bf16(1, 96, 4, 40)[..., 4:36], k, k),
+        "72-byte head stride": (bf16(1, 96, 4, 36)[..., :32], k, k),
+        "hd 20, contiguous": (bf16(2, 150, 4, 20), bf16(2, 150, 2, 20),
+                              bf16(2, 150, 2, 20)),
+    }
+    for label, qkv in views.items():
+        err = _flash_close(torch, fa, "bf16_tc", qkv,
+                           dict(causal=True, window=0), FLASH_TOL_BF16)
+        log(f"[flash] bf16_tc unaligned view ({label}): max_abs_err="
+            f"{err:.3e}")
+    log(f"[flash] ok: unaligned bf16 views within {FLASH_TOL_BF16} of the "
+        f"plain version through the bf16_tc variant")
+
+
+def _flash_close(torch, fa, variant, qkv, kw, tol) -> float:
+    """One kernel call on ``qkv``, which must launch ``variant`` once, held
+    against the plain version at ``tol``; returns the largest error."""
+    before = fa.KERNEL.variant_launches[variant]
+    out = fa.flash_attention(*qkv, **kw)
+    if fa.KERNEL.variant_launches[variant] != before + 1:
+        raise AssertionError(f"{qkv[0].dtype} did not launch the {variant} "
+                             f"variant")
+    plain = fa.flash_attention_plain(*qkv, **kw)
+    torch.cuda.synchronize()
+    if out.shape != plain.shape:
+        raise AssertionError(f"kernel output {tuple(out.shape)}, plain "
+                             f"{tuple(plain.shape)}")
+    torch.testing.assert_close(out, plain, rtol=tol, atol=tol)
+    return float((out.float() - plain.float()).abs().max())
 
 
 def phase_flash_main(torch, fa, m) -> dict:
@@ -495,6 +551,44 @@ def phase_flash_main(torch, fa, m) -> dict:
         f"kernel at {row['tflops']:.2f} TFLOP/s, "
         f"{100 * row['bound_ms'] / row['ms']:.1f}% of its bf16 bound, "
         f"{row['ms'] / row['bound_fp32_ms']:.3f} of the fp32 bound")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_flash_gemma(torch, fa) -> dict:
+    """gemma2-9b's prefill attention shape (``FLASH_GEMMA``: hd 256, window,
+    soft-cap) in bf16 through the tensor-core variant: held against the
+    plain version, then kernel, plain and library times. SDPA takes no
+    soft-cap: its time over the same mask is a yardstick only."""
+    B, S, Hq, Hkv, hd, window, cap = FLASH_GEMMA
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = _flash_inputs(torch, gen, B, S, S, Hq, Hkv, hd, torch.bfloat16,
+                            q_std=4.0)
+    kw = dict(window=window, logit_softcap=cap)
+    err = _flash_close(torch, fa, "bf16_tc", (q, k, v), kw, FLASH_TOL_BF16)
+    torch.cuda.empty_cache()
+    pairs = B * Hq * fa.band_pairs(S, S, causal=True, window=window)
+    n_ops = 4 * hd * pairs
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library(qq, kk, vv):  # no soft-cap: a yardstick only
+        return sdpa(qq.transpose(1, 2), kk.transpose(1, 2),
+                    vv.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+    row = _timed(torch, f"flash_attention gemma2-9b shape B={B} S={S} "
+                 f"Hq/Hkv={Hq}/{Hkv} hd={hd} window={window} softcap={cap} "
+                 f"bf16", lambda *a: fa.flash_attention(*a, **kw),
+                 lambda *a: fa.flash_attention_plain(*a, **kw), library,
+                 [(q, k, v)], n_bytes, n_ops, BF16_OPS_PER_S, batch=4, reps=3)
+    row.update(max_abs_err=err, tflops=n_ops / row["ms"] / 1e9)
+    log(f"[flash] gemma2-9b shape: max_abs_err={err:.3e}; kernel at "
+        f"{row['tflops']:.2f} TFLOP/s, {100 * row['bound_ms'] / row['ms']:.1f}% "
+        f"of its bf16 bound")
     del q, k, v, mask
     torch.cuda.empty_cache()
     return row
@@ -627,12 +721,13 @@ def phase_serve_gpu_vs_cpu(torch, fa, serve) -> None:
         f"difference {err:.3e} <= 1e-4")
 
 
-def _ssd_inputs(torch, gen, B, S, H, P, N, *, as_forward=False):
-    """x, dt, A, Bm, Cm on the card. By default as the reference tests draw
-    them (x, B, C normal, dt = softplus of a normal, A = -exp of a normal);
-    ``as_forward``: as ``mamba_forward`` makes them, x, B and C out of a
-    SiLU, dt = softplus(normal + dt_bias 0), A = -exp(log(linspace(1, 16,
-    H))), the init's decay rates."""
+def _ssd_inputs(torch, gen, B, S, H, P, N, dtype, *, as_forward=False):
+    """x, dt, A, Bm, Cm on the card, x, Bm and Cm in ``dtype`` (dt and A
+    fp32). By default as the reference tests draw them (x, B, C normal, dt
+    = softplus of a normal, A = -exp of a normal); ``as_forward``: as
+    ``mamba_forward`` makes them, x, B and C out of a SiLU, dt =
+    softplus(normal + dt_bias 0), A = -exp(log(linspace(1, 16, H))), the
+    init's decay rates."""
     F = torch.nn.functional
 
     def draw(*shape):
@@ -644,7 +739,8 @@ def _ssd_inputs(torch, gen, B, S, H, P, N, *, as_forward=False):
     else:
         x, bm, cm = draw(B, S, H, P), draw(B, S, N), draw(B, S, N)
         A = -torch.exp(draw(H))
-    return x, F.softplus(draw(B, S, H)), A, bm, cm
+    dt = F.softplus(draw(B, S, H))
+    return x.to(dtype), dt, A, bm.to(dtype), cm.to(dtype)
 
 
 def _ssd_close(torch, out, plain, label) -> float:
@@ -656,19 +752,22 @@ def _ssd_close(torch, out, plain, label) -> float:
 
 
 def phase_ssd_check(torch, ssd) -> None:
-    """Kernel vs plain version on the reference tests' four cases, at
-    their tolerance, and bitwise repeatable."""
+    """Kernel vs plain version on the reference tests' four cases, with x,
+    B and C in fp32 and in bf16 (the plain version widens them, exactly),
+    at the reference tests' tolerance, and bitwise repeatable."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for case in SSD_CASES:
-        *shape, chunk = case
-        args = _ssd_inputs(torch, gen, *shape)
-        out = ssd.ssd_scan(*args, chunk=chunk)
-        again = ssd.ssd_scan(*args, chunk=chunk)
-        plain = ssd.ssd_scan_plain(*args, chunk)
-        torch.cuda.synchronize()
-        _ssd_close(torch, out, plain, f"{case}")
-        if not torch.equal(out, again):
-            raise AssertionError(f"SSD kernel not bitwise repeatable at {case}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SSD_CASES:
+            *shape, chunk = case
+            args = _ssd_inputs(torch, gen, *shape, dtype)
+            out = ssd.ssd_scan(*args, chunk=chunk)
+            again = ssd.ssd_scan(*args, chunk=chunk)
+            plain = ssd.ssd_scan_plain(*args, chunk)
+            torch.cuda.synchronize()
+            _ssd_close(torch, out, plain, f"{case} {dtype}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"SSD kernel not bitwise repeatable at "
+                                     f"{case} {dtype}")
     log(f"[ssd] ok: cases within atol {SSD_ATOL} / rtol {SSD_RTOL} of the "
         f"plain version, bitwise repeatable")
 
@@ -684,32 +783,57 @@ def ssd_main(serve) -> dict:
 
 def phase_ssd_main(torch, ssd, m) -> dict:
     """The forward's SSD call ``m``, on inputs drawn as the forward makes
-    them: the kernel held against its plain version, then kernel and plain
-    times on the same inputs. No single PyTorch call computes the scan, so
-    there is no library time."""
+    them (bf16 x, B and C): the kernel held against its plain version, then
+    kernel and plain times on the same inputs, and the device time of each
+    of the kernel's launches. No single PyTorch call computes the scan, so
+    there is no library time.
+
+    The bound is the kernel's own form: its products run on the TF32
+    tensor cores, two TF32 products per multiply-add with bf16 x, B and C
+    (three, 3xTF32, with fp32 ones), so the operations bound it at
+    ``TF32_TERMS`` x ``ssd_flops`` over the TF32 peak, against the bytes
+    at the HBM rate. Beside it: the same flops at the fp32 peak outside
+    the tensor cores (the bound of a CUDA-core form of the scan) and at the
+    bf16 peak."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     shape = [m[k] for k in ("B", "S", "H", "P", "N")]
-    args = _ssd_inputs(torch, gen, *shape, as_forward=True)
+    dtype = torch.bfloat16
+    args = _ssd_inputs(torch, gen, *shape, dtype, as_forward=True)
     out = ssd.ssd_scan(*args, chunk=m["chunk"])
+    again = ssd.ssd_scan(*args, chunk=m["chunk"])
     plain = ssd.ssd_scan_plain(*args, m["chunk"])
     torch.cuda.synchronize()
-    err = _ssd_close(torch, out, plain, f"forward shape {m}")
-    del out, plain
+    err = _ssd_close(torch, out, plain, f"forward shape {m}, {dtype}")
+    if not torch.equal(out, again):
+        raise AssertionError("SSD kernel not bitwise repeatable at the "
+                             "forward's shape")
+    del out, again, plain
     torch.cuda.empty_cache()
-    n_ops = ssd.ssd_flops(*shape, m["chunk"])
-    n_bytes = sum(t.numel() * t.element_size() for t in args) + \
-        args[0].numel() * 4  # y, written once
-    row = _timed(torch, "ssd_scan " + " ".join(f"{k}={v}" for k, v in
-                                                m.items()),
+    flops = ssd.ssd_flops(*shape, m["chunk"])
+    n_ops = ssd.TF32_TERMS[dtype] * flops
+    n_bytes = ssd.ssd_bytes(*shape, args[0].element_size())
+    label = "ssd_scan " + " ".join(f"{k}={v}" for k, v in m.items())
+    row = _timed(torch, f"{label} bf16 x/B/C",
                  lambda *a: ssd.ssd_scan(*a, chunk=m["chunk"]),
                  lambda *a: ssd.ssd_scan_plain(*a, m["chunk"]),
-                 None, [args], n_bytes, n_ops, batch=4, reps=3)
-    row["bound_bf16_ms"] = bound_ms(n_bytes, n_ops, BF16_OPS_PER_S)[0]
-    row.update(ops=n_ops, bytes=n_bytes, max_abs_err=err)
-    log(f"[timing] ssd_scan: {n_ops:.4e} ops, {n_bytes} bytes; bound "
-        f"{row['bound_ms']:.4f} ms at the fp32 peak ({row['bound_by']}), "
-        f"{row['bound_bf16_ms']:.4f} ms at the bf16 tensor-core peak; "
-        f"kernel at {n_ops / row['ms'] / 1e9:.2f} TFLOP/s")
+                 None, [args], n_bytes, n_ops, TF32_OPS_PER_S, batch=4, reps=3)
+    row["bound_fp32_ms"] = bound_ms(n_bytes, flops)[0]
+    row["bound_bf16_ms"] = bound_ms(n_bytes, flops, BF16_OPS_PER_S)[0]
+    from repro_torch.launch.profile_ssd import device_parts
+
+    row["parts_ms"] = device_parts(
+        lambda: ssd.ssd_scan(*args, chunk=m["chunk"])) or None
+    row["tflops"] = flops / row["ms"] / 1e9
+    row.update(ops=n_ops, flops=flops, bytes=n_bytes, max_abs_err=err)
+    parts = ("not measured (no device events)" if row["parts_ms"] is None
+             else ", ".join(f"{k} {v:.4f}" for k, v in row["parts_ms"].items()))
+    log(f"[timing] ssd_scan: {flops:.4e} flops, {n_ops:.4e} TF32 products' "
+        f"flops, {n_bytes} bytes; bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}, TF32 tensor cores), {row['bound_fp32_ms']:.4f} "
+        f"at the fp32 peak, {row['bound_bf16_ms']:.4f} at the bf16 "
+        f"tensor-core peak; kernel at {row['tflops']:.2f} TFLOP/s of scan "
+        f"flops, {100 * row['bound_ms'] / row['ms']:.1f}% of its bound")
+    log(f"[timing] ssd_scan device ms a call by launch: {parts}")
     del args
     torch.cuda.empty_cache()
     return row
@@ -904,6 +1028,7 @@ def main() -> int:
     phase_flash_check(torch, fa)
     main_call = flash_main(serve)
     flash = phase_flash_main(torch, fa, main_call)
+    gemma = phase_flash_gemma(torch, fa)
     phase_ssd_check(torch, ssd)
     ssd_call = ssd_main(serve)
     scan = phase_ssd_main(torch, ssd, ssd_call)
@@ -952,7 +1077,13 @@ def main() -> int:
          "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
          "library_ms": flash["library_ms"], "call_ms": flash["call_ms"],
          "bound_fp32_ms": flash["bound_fp32_ms"], "tflops": flash["tflops"],
-         "shape": {**main_call, "dtype": "bfloat16", "causal": True}},
+         "shape": {**main_call, "dtype": "bfloat16", "causal": True},
+         "hd256": {"shape": dict(zip(("B", "S", "Hq", "Hkv", "hd", "window",
+                                      "softcap"), FLASH_GEMMA)),
+                   "ms": gemma["ms"], "plain_ms": gemma["plain_ms"],
+                   "bound_ms": gemma["bound_ms"],
+                   "library_ms": gemma["library_ms"],
+                   "max_abs_err": gemma["max_abs_err"]}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:21",
@@ -960,8 +1091,10 @@ def main() -> int:
          "ms": scan["ms"], "plain_ms": scan["plain_ms"],
          "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
          "library_ms": None, "call_ms": scan["call_ms"],
+         "bound_fp32_ms": scan["bound_fp32_ms"],
          "bound_bf16_ms": scan["bound_bf16_ms"],
-         "shape": {**ssd_call, "dtype": "float32"}},
+         "parts_ms": scan["parts_ms"], "tflops": scan["tflops"],
+         "shape": {**ssd_call, "dtype": "bfloat16 x, B, C; fp32 dt, A"}},
     ]
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"on {device['smi']}")

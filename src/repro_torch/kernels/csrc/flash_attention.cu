@@ -50,7 +50,8 @@
 //     rounding departs from the reference's fp32 math (relative 2^-9 a
 //     weight); bf16 x bf16 products are exact in fp32;
 //   * the output goes through the warp's own rows of the Q tile to 16-byte
-//     stores. hd is padded to HD = 16 * ceil(hd / 16) with zeros.
+//     stores. hd is padded to HD = 16 * ceil(hd / 16) with zeros, up to 256
+//     (gemma2's head dim).
 //
 // fp32: CUDA cores (flash_kernel_f32). Its inputs are held to 2e-5, which
 // bf16 or TF32 tensor cores cannot meet. One block of 256 threads owns a
@@ -88,6 +89,7 @@ namespace {
 
 constexpr float kNegInf = -2.0e38f;
 constexpr int kWarps = 8;  // warps (16 query rows each) in a bf16 block
+constexpr int kMaxHeadDim = 256;
 
 struct Params {
   const void* q;
@@ -179,7 +181,9 @@ struct TcShape {
   static constexpr int kRows = 16 * kWarps;
   static constexpr int kThreads = 32 * kWarps;
   // up to hd 80 the registers are capped at 128 a thread, so that 16 warps
-  // share an SM (uncapped, hd 80 takes 160 and leaves 12 or 8)
+  // share an SM (uncapped, hd 80 takes 160 and leaves 12 or 8); above, one
+  // block an SM, uncapped (at hd 256 the tiles take ~203 KB of shared
+  // memory and the accumulator 128 registers a thread)
   static constexpr int kMinBlocks = HD <= 80 ? 16 / kWarps : 1;
   static constexpr size_t kTileElems = static_cast<size_t>(kBK) * kLd;
   static constexpr size_t kSmem =
@@ -433,6 +437,14 @@ int dispatch_bf16_tc(const Params& p, int batch, cudaStream_t s) {
     case 6: return launch_bf16_tc<96>(p, batch, s);
     case 7: return launch_bf16_tc<112>(p, batch, s);
     case 8: return launch_bf16_tc<128>(p, batch, s);
+    case 9: return launch_bf16_tc<144>(p, batch, s);
+    case 10: return launch_bf16_tc<160>(p, batch, s);
+    case 11: return launch_bf16_tc<176>(p, batch, s);
+    case 12: return launch_bf16_tc<192>(p, batch, s);
+    case 13: return launch_bf16_tc<208>(p, batch, s);
+    case 14: return launch_bf16_tc<224>(p, batch, s);
+    case 15: return launch_bf16_tc<240>(p, batch, s);
+    case 16: return launch_bf16_tc<256>(p, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -461,9 +473,12 @@ constexpr size_t smem_bytes() {
   return (2 * 16 * NC * kLdt + kBK * 16 * NC + kBQ * kLdt) * sizeof(float);
 }
 
-// NC = ceil(hd / 16): each thread accumulates NC output columns.
+// NC = ceil(hd / 16): each thread accumulates NC output columns. From NC 8
+// on, the tiles take more than half of an SM's shared memory (222,208 bytes
+// at NC 16, hd 256), so one block runs an SM; above NC 8 its registers are
+// uncapped.
 template <int NC>
-__global__ void __launch_bounds__(kThreads, 2) flash_kernel_f32(const Params p) {
+__global__ void __launch_bounds__(kThreads, NC <= 8 ? 2 : 1) flash_kernel_f32(const Params p) {
   constexpr int HDP = 16 * NC;  // head dim padded to a multiple of 16
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [HDP][kLdt] Q tile, transposed
@@ -618,6 +633,14 @@ int dispatch_f32(const Params& p, int batch, cudaStream_t s) {
     case 6: return launch_f32<6>(p, batch, s);
     case 7: return launch_f32<7>(p, batch, s);
     case 8: return launch_f32<8>(p, batch, s);
+    case 9: return launch_f32<9>(p, batch, s);
+    case 10: return launch_f32<10>(p, batch, s);
+    case 11: return launch_f32<11>(p, batch, s);
+    case 12: return launch_f32<12>(p, batch, s);
+    case 13: return launch_f32<13>(p, batch, s);
+    case 14: return launch_f32<14>(p, batch, s);
+    case 15: return launch_f32<15>(p, batch, s);
+    case 16: return launch_f32<16>(p, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -640,7 +663,7 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, 
                         long long v_sb, long long v_ss, long long v_sh,
                         float scale, float cap, int causal, int window, int q_offset,
                         void* stream) {
-  if (batch <= 0 || sq <= 0 || sk <= 0 || hd <= 0 || hd > 128 || hkv <= 0 ||
+  if (batch <= 0 || sq <= 0 || sk <= 0 || hd <= 0 || hd > kMaxHeadDim || hkv <= 0 ||
       hq % hkv != 0 || hq > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{q, k, v, out, sq, sk, hq, hkv, hd,

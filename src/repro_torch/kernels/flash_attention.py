@@ -32,7 +32,7 @@ KERNEL = CudaKernel("flash_attention.cu", {
 
 # dtype -> (the C entry's dtype code, the variant it launches)
 _DTYPES = {torch.float32: (0, "fp32"), torch.bfloat16: (1, "bf16_tc")}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 # the kernel's plain version: materialized fp32 scores, the port of the
@@ -55,12 +55,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: (B, Sq, Hq, hd); k/v: (B, Sk, Hkv, hd). Returns (B, Sq, Hq, hd) in
     q's dtype.
 
-    On CUDA: fp32 or bf16, one dtype for all three, ``vd == hd <= 128``,
+    On CUDA: fp32 or bf16, one dtype for all three, ``vd == hd <= 256``,
     ``Hq % Hkv == 0``, the head-dim stride 1 (other strides are read as
-    they are), non-empty; in bf16 every row 16-byte aligned (the data
-    pointers, and the batch, sequence and head strides of the axes longer
-    than 1 multiples of 8 elements). Anything else raises; there is no
-    fallback.
+    they are), non-empty. Anything else raises; there is no fallback. The
+    tensor-core variant copies 16-byte chunks: a bf16 q, k or v whose rows
+    are not 16-byte aligned (its data pointer, or a batch, sequence or head
+    stride of an axis longer than 1 not a multiple of 8 elements) is first
+    copied into a fresh buffer with the head dim zero-padded to a multiple
+    of 8, and the output is sliced back. Zero columns add nothing to q·k
+    and give zero output columns, so the result is the same function; the
+    scale comes from the true hd.
     """
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -87,25 +91,41 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash kernel takes q, k, v whose head dim is "
                          "contiguous")
-    # an axis of length 1 is only ever read at index 0: its stride is moot
-    strides = [[0 if t.shape[i] == 1 else t.stride(i) for i in range(3)]
-               for t in (q, k, v)]
     code, variant = _DTYPES[q.dtype]
-    if variant == "bf16_tc" and any(
-            t.data_ptr() % 16 or any(st % 8 for st in ts)
-            for t, ts in zip((q, k, v), strides)):
-        raise ValueError("the bf16 flash kernel copies 16-byte chunks: q, k "
-                         "and v need 16-byte-aligned rows (data pointers, "
-                         "and strides that are multiples of 8 elements)")
     if logit_softcap is not None and not logit_softcap > 0:
         raise ValueError(f"logit_softcap must be positive, got {logit_softcap}")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    out = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    width = hd  # the head dim the kernel sees
+    if variant == "bf16_tc":
+        unaligned = [t.data_ptr() % 16 != 0 or any(st % 8 for st in
+                                                   _row_strides(t))
+                     for t in (q, k, v)]
+        if any(unaligned):
+            width = -(-hd // 8) * 8
+            q, k, v = (_aligned_copy(t, width) if bad or width != hd else t
+                       for t, bad in zip((q, k, v), unaligned))
+    strides = [_row_strides(t) for t in (q, k, v)]
+    out = torch.empty((B, Sq, Hq, width), dtype=q.dtype, device=q.device)
     rc = KERNEL.lib().flash_attention_fwd(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Sq, Sk, Hq, Hkv, hd, *strides[0], *strides[1],
+        out.data_ptr(), B, Sq, Sk, Hq, Hkv, width, *strides[0], *strides[1],
         *strides[2], float(scale), float(logit_softcap or 0.0),
         int(bool(causal)), int(window), int(q_offset), stream_ptr())
     KERNEL.check(rc, "flash_attention kernel")
     KERNEL.count(variant)
-    return out
+    return out if width == hd else out[..., :hd].contiguous()
+
+
+def _row_strides(t):
+    """The batch, sequence and head strides; an axis of length 1 is only
+    ever read at index 0, so its stride is moot and passed as 0."""
+    return [0 if t.shape[i] == 1 else t.stride(i) for i in range(3)]
+
+
+def _aligned_copy(t, width: int):
+    """A fresh contiguous copy of ``t`` (B, S, H, hd) with the head dim
+    zero-padded to ``width``, a multiple of 8: every row 16-byte aligned
+    in bf16."""
+    buf = t.new_zeros((*t.shape[:3], width))
+    buf[..., :t.shape[3]] = t
+    return buf

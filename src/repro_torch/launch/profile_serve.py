@@ -18,7 +18,7 @@ generation it reports:
 3. mamba2-2.7b's scoring forward (``serve.SSM_ARCH``) on the same prompts'
    shape, through the SSD kernel: its warm time on the host clock after a
    synchronize, and a ``torch.profiler`` trace of one forward with its
-   device time split into the SSD kernel (its C·Bᵀ pass included), the
+   device time split into the SSD kernel (all five of its launches), the
    matrix products (cuBLAS) and the rest (elementwise passes and copies).
 
 Needs a CUDA device; prints nothing it did not measure.
@@ -36,9 +36,10 @@ from repro_torch.launch.profile_round import profiled
 
 B, P, G = serve.BATCH, serve.PROMPT_LEN, serve.GEN
 DECODE_STEPS = 8
-# device-kernel name fragments: the SSD kernel's two kernels, cuBLAS's
-# matrix products
-SSD_NAMES = ("ssd_kernel", "cb_kernel")
+# device-kernel name fragments: the SSD kernel's launches (ssd_cum_kernel,
+# ssd_cb_kernel, ssd_state_kernel, ssd_pass_kernel, ssd_out_kernel),
+# cuBLAS's matrix products
+SSD_NAMES = ("ssd_",)
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 

@@ -144,16 +144,19 @@ def mamba_forward(cfg, p, u, *, use_pallas: bool = False):
     Cm = xBC[..., dI + N:]
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    xf = x.to(torch.float32)
     if use_pallas:
         from repro_torch.kernels import ops as kops
 
-        y = kops.ssd_scan(xf, dt, A, Bm.to(torch.float32),
-                          Cm.to(torch.float32), chunk=cfg.ssm_chunk)
+        # x, Bm and Cm go in the model's dtype: the kernel widens bf16 in
+        # registers, which is exact
+        y = kops.ssd_scan(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     else:
-        y = ssd_chunked_ref(xf, dt, A, Bm.to(torch.float32),
-                            Cm.to(torch.float32), chunk=min(cfg.ssm_chunk, S))
-    y = y + p["D"][None, None, :, None] * xf
+        f32 = torch.float32
+        y = ssd_chunked_ref(x.to(f32), dt, A, Bm.to(f32), Cm.to(f32),
+                            chunk=min(cfg.ssm_chunk, S))
+    # type promotion widens x exactly: the same fp32 product as from an
+    # fp32 copy of x
+    y = y + p["D"][None, None, :, None] * x
     y = y.reshape(Bsz, S, dI).to(u.dtype)
     y = L.rmsnorm(y * F.silu(z), p["gate_norm_scale"], cfg.norm_eps)
     return y @ p["out_proj"]

@@ -183,9 +183,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(q.double(), k.double(), k.double())
     with pytest.raises(TypeError):
         fa.flash_attention(q, k.bfloat16(), k)
-    wide = torch.ones((1, 8, 2, 160), device=cuda)
+    wide = torch.ones((1, 8, 2, 264), device=cuda)
     with pytest.raises(ValueError, match="hd"):
-        fa.flash_attention(torch.ones((1, 8, 4, 160), device=cuda), wide, wide)
+        fa.flash_attention(torch.ones((1, 8, 4, 264), device=cuda), wide, wide)
     strided = torch.ones((1, 8, 32, 2), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, strided, strided)
@@ -209,21 +209,50 @@ def test_flash_kernel_bf16_head_dim_not_multiple_of_8(cuda):
                                rtol=3e-2, atol=3e-2)
 
 
-def test_flash_kernel_refuses_unaligned_bf16_rows(cuda):
-    """The tensor-core variant copies 16-byte chunks: a bf16 view whose
-    rows do not start on 16 bytes is refused, never launched nor sent to
-    another variant."""
-    k = torch.ones((1, 8, 2, 32), device=cuda, dtype=torch.bfloat16)
-    shifted = torch.ones((1, 8, 4, 40), device=cuda,
-                         dtype=torch.bfloat16)[..., 4:36]  # rows at +8 bytes
-    narrow = torch.ones((1, 8, 4, 36), device=cuda,
-                        dtype=torch.bfloat16)[..., :32]  # 72-byte head stride
-    before = dict(fa.KERNEL.variant_launches)
-    for q in (shifted, narrow):
+def test_flash_kernel_bf16_unaligned_rows_match_plain(cuda):
+    """The tensor-core variant copies 16-byte chunks: a bf16 view whose rows
+    do not start on 16 bytes is copied by the wrapper into a fresh buffer
+    (head dim zero-padded to a multiple of 8) for the same kernel, one
+    launch of bf16_tc, and gives the plain version's result at 3e-2."""
+    gen = torch.Generator().manual_seed(21)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen).to(cuda, torch.bfloat16)
+    k = bf16(1, 8, 2, 32)
+    shifted = bf16(1, 8, 4, 40)[..., 4:36]  # rows at +8 bytes
+    narrow = bf16(1, 8, 4, 36)[..., :32]    # 72-byte head stride
+    hd20 = (bf16(2, 150, 4, 20), bf16(2, 150, 2, 20), bf16(2, 150, 2, 20))
+    for q, kk, vv in ((shifted, k, k), (narrow, k, k),
+                      (k, narrow[:, :, :2], narrow[:, :, 2:]), hd20):
         assert q.stride(3) == 1
-        with pytest.raises(ValueError, match="16-byte"):
-            fa.flash_attention(q, k, k)
-    assert fa.KERNEL.variant_launches == before
+        before = dict(fa.KERNEL.variant_launches)
+        out = fa.flash_attention(q, kk, vv, window=5)
+        assert fa.KERNEL.variant_launches == {
+            "bf16_tc": before["bf16_tc"] + 1, "fp32": before["fp32"]}
+        torch.cuda.synchronize()
+        want = fa.flash_attention_plain(q, kk, vv, window=5)
+        assert out.shape == want.shape and out.is_contiguous()
+        torch.testing.assert_close(out, want, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("case", [(1, 128, 128, 4, 2, 256, True, 0, 50.0),
+                                  (2, 200, 200, 4, 4, 256, True, 64, None),
+                                  (1, 70, 70, 2, 1, 144, False, 0, None)])
+def test_flash_kernel_wide_head_dims_match_plain(cuda, dtype, tol, case):
+    """hd 144 and 256 (gemma2's), the fp32 variant at 2e-5 and the bf16
+    tensor-core variant at 3e-2, the tolerances of the hd <= 128 cases."""
+    *_, causal, window, cap = case
+    q, k, v = _flash_inputs(case, dtype, cuda, sum(case[:6]))
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    variant = "fp32" if dtype == torch.float32 else "bf16_tc"
+    before = fa.KERNEL.variant_launches[variant]
+    out = fa.flash_attention(q, k, v, **kw)
+    assert fa.KERNEL.variant_launches[variant] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v, **kw),
+                               rtol=tol, atol=tol)
 
 
 # the cases of tests/test_kernels.py: B, S, H, P, N, chunk
@@ -261,6 +290,44 @@ def test_ssd_kernel_matches_plain(cuda, case):
     assert torch.equal(out, again)
 
 
+@pytest.mark.parametrize("case", SSD_CASES, ids=[str(c) for c in SSD_CASES])
+def test_ssd_kernel_bf16_inputs_match_plain(cuda, case):
+    """bf16 x, B and C (the forward's dtype; dt and A fp32), widened in
+    registers: within atol 2e-4 / rtol 2e-3 of the plain version on the same
+    bf16 inputs, bitwise repeatable, one launch a call, fp32 y."""
+    *shape, chunk = case
+    x, dt, A, bm, cm = _ssd_inputs(*shape, cuda, sum(case) + 1)
+    args = (x.bfloat16(), dt, A, bm.bfloat16(), cm.bfloat16())
+    before = ssd.KERNEL.launches
+    out = ssd.ssd_scan(*args, chunk=chunk)
+    again = ssd.ssd_scan(*args, chunk=chunk)
+    assert ssd.KERNEL.launches == before + 2
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, ssd.ssd_scan_plain(*args, chunk),
+                               rtol=2e-3, atol=2e-4)
+    assert torch.equal(out, again)
+
+
+def test_ssd_kernel_bf16_strided_odd_widths(cuda):
+    """bf16 x, Bm and Cm as views of one conv output with rows that are not
+    16-byte aligned (the tiles are then copied element by element), P = 7,
+    N = 5, a chunk of 64."""
+    B, S, H, P, N, chunk = 2, 192, 3, 7, 5, 64
+    gen = torch.Generator().manual_seed(10)
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=gen).to(
+        cuda, torch.bfloat16)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    bm, cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen))
+    A = -torch.linspace(1.0, 16.0, H)
+    dt, A = dt.to(cuda), A.to(cuda)
+    out = ssd.ssd_scan(x, dt, A, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ssd.ssd_scan_plain(x, dt, A, bm, cm, chunk),
+                               rtol=2e-3, atol=2e-4)
+
+
 def test_ssd_kernel_strided_ragged(cuda):
     """x, Bm and Cm as views of one conv output, as mamba_forward makes
     them; P = 80 (a second, partial column slice), N = 100 (not a multiple
@@ -284,6 +351,10 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 8, 4, cuda, 0)
     with pytest.raises(TypeError):
         ssd.ssd_scan(x.double(), dt, A, bm, cm, chunk=32)
+    with pytest.raises(TypeError):  # x, Bm, Cm of one dtype
+        ssd.ssd_scan(x.bfloat16(), dt, A, bm, cm, chunk=32)
+    with pytest.raises(TypeError):  # dt stays fp32
+        ssd.ssd_scan(x, dt.bfloat16(), A, bm, cm, chunk=32)
     with pytest.raises(ValueError, match="S % chunk"):
         ssd.ssd_scan(x, dt, A, bm, cm, chunk=48)
     wide = torch.ones((1, 64, 200), device=cuda)
