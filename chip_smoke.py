@@ -751,6 +751,21 @@ def _ssd_close(torch, out, plain, label) -> float:
     return err
 
 
+def _ssd_hold(torch, ssd, args, chunk, label) -> float:
+    """The kernel against its plain version on ``args``, at the reference
+    tests' tolerance, and bitwise repeatable; returns the max abs error."""
+    out = ssd.ssd_scan(*args, chunk=chunk)
+    again = ssd.ssd_scan(*args, chunk=chunk)
+    plain = ssd.ssd_scan_plain(*args, chunk)
+    torch.cuda.synchronize()
+    err = _ssd_close(torch, out, plain, label)
+    if not torch.equal(out, again):
+        raise AssertionError(f"SSD kernel not bitwise repeatable at {label}")
+    del out, again, plain
+    torch.cuda.empty_cache()
+    return err
+
+
 def phase_ssd_check(torch, ssd) -> None:
     """Kernel vs plain version on the reference tests' four cases, with x,
     B and C in fp32 and in bf16 (the plain version widens them, exactly),
@@ -760,14 +775,7 @@ def phase_ssd_check(torch, ssd) -> None:
         for case in SSD_CASES:
             *shape, chunk = case
             args = _ssd_inputs(torch, gen, *shape, dtype)
-            out = ssd.ssd_scan(*args, chunk=chunk)
-            again = ssd.ssd_scan(*args, chunk=chunk)
-            plain = ssd.ssd_scan_plain(*args, chunk)
-            torch.cuda.synchronize()
-            _ssd_close(torch, out, plain, f"{case} {dtype}")
-            if not torch.equal(out, again):
-                raise AssertionError(f"SSD kernel not bitwise repeatable at "
-                                     f"{case} {dtype}")
+            _ssd_hold(torch, ssd, args, chunk, f"{case} {dtype}")
     log(f"[ssd] ok: cases within atol {SSD_ATOL} / rtol {SSD_RTOL} of the "
         f"plain version, bitwise repeatable")
 
@@ -781,58 +789,77 @@ def ssd_main(serve) -> dict:
                 P=cfg.ssm_head_dim, N=cfg.ssm_state, chunk=cfg.ssm_chunk)
 
 
-def phase_ssd_main(torch, ssd, m) -> dict:
-    """The forward's SSD call ``m``, on inputs drawn as the forward makes
-    them (bf16 x, B and C): the kernel held against its plain version, then
-    kernel and plain times on the same inputs, and the device time of each
-    of the kernel's launches. No single PyTorch call computes the scan, so
-    there is no library time.
+def device_parts(torch, fn, reps: int = 3) -> dict:
+    """Device ms a call of each SSD launch (``ssd_*`` kernels), from a
+    torch.profiler trace of ``reps`` calls of ``fn``; empty when the
+    profiler records no device time."""
+    import re
 
-    The bound is the kernel's own form: its products run on the TF32
-    tensor cores, two TF32 products per multiply-add with bf16 x, B and C
-    (three, 3xTF32, with fp32 ones), so the operations bound it at
-    ``TF32_TERMS`` x ``ssd_flops`` over the TF32 peak, against the bytes
-    at the HBM rate. Beside it: the same flops at the fp32 peak outside
-    the tensor cores (the bound of a CUDA-core form of the scan) and at the
-    bf16 peak."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for ev in prof.key_averages():
+        name = re.search(r"ssd_\w+", ev.key)
+        if name and getattr(ev, "device_time_total", 0):
+            parts[name.group(0)] = (parts.get(name.group(0), 0.0)
+                                    + ev.device_time_total / 1e3 / reps)
+    return parts
+
+
+def phase_ssd_main(torch, ssd, m) -> dict:
+    """The forward's SSD call ``m``: the kernel held against its plain
+    version on inputs drawn as the forward makes them, with x, B and C in
+    fp32 and in bf16 (as the forward passes them); then kernel and plain
+    times on the bf16 inputs, and the device time of each of the kernel's
+    launches. No single PyTorch call computes the scan, so there is no
+    library time.
+
+    ``bound_ms`` is what the function needs: the bytes at the HBM rate
+    against the scan's flops at the bf16 tensor-core peak (its inputs are
+    bf16). Beside it: ``bound_tf32_form_ms``, the kernel's own form (two
+    TF32 products per multiply-add on bf16 x, B and C, ``TF32_TERMS``, at
+    the TF32 peak), and ``bound_fp32_ms``, the scan's flops at the fp32
+    peak outside the tensor cores (the bound of a CUDA-core form)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     shape = [m[k] for k in ("B", "S", "H", "P", "N")]
+    err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _ssd_inputs(torch, gen, *shape, dtype, as_forward=True)
+        err[dtype] = _ssd_hold(torch, ssd, args, m["chunk"],
+                               f"forward shape {m}, {dtype}")
     dtype = torch.bfloat16
-    args = _ssd_inputs(torch, gen, *shape, dtype, as_forward=True)
-    out = ssd.ssd_scan(*args, chunk=m["chunk"])
-    again = ssd.ssd_scan(*args, chunk=m["chunk"])
-    plain = ssd.ssd_scan_plain(*args, m["chunk"])
-    torch.cuda.synchronize()
-    err = _ssd_close(torch, out, plain, f"forward shape {m}, {dtype}")
-    if not torch.equal(out, again):
-        raise AssertionError("SSD kernel not bitwise repeatable at the "
-                             "forward's shape")
-    del out, again, plain
-    torch.cuda.empty_cache()
     flops = ssd.ssd_flops(*shape, m["chunk"])
-    n_ops = ssd.TF32_TERMS[dtype] * flops
     n_bytes = ssd.ssd_bytes(*shape, args[0].element_size())
     label = "ssd_scan " + " ".join(f"{k}={v}" for k, v in m.items())
     row = _timed(torch, f"{label} bf16 x/B/C",
                  lambda *a: ssd.ssd_scan(*a, chunk=m["chunk"]),
                  lambda *a: ssd.ssd_scan_plain(*a, m["chunk"]),
-                 None, [args], n_bytes, n_ops, TF32_OPS_PER_S, batch=4, reps=3)
+                 None, [args], n_bytes, flops, BF16_OPS_PER_S, batch=4,
+                 reps=3)
+    row["bound_tf32_form_ms"] = bound_ms(
+        n_bytes, ssd.TF32_TERMS[dtype] * flops, TF32_OPS_PER_S)[0]
     row["bound_fp32_ms"] = bound_ms(n_bytes, flops)[0]
-    row["bound_bf16_ms"] = bound_ms(n_bytes, flops, BF16_OPS_PER_S)[0]
-    from repro_torch.launch.profile_ssd import device_parts
-
+    row["bound_bf16_ms"] = row["bound_ms"]
     row["parts_ms"] = device_parts(
-        lambda: ssd.ssd_scan(*args, chunk=m["chunk"])) or None
+        torch, lambda: ssd.ssd_scan(*args, chunk=m["chunk"])) or None
     row["tflops"] = flops / row["ms"] / 1e9
-    row.update(ops=n_ops, flops=flops, bytes=n_bytes, max_abs_err=err)
+    row.update(flops=flops, bytes=n_bytes, max_abs_err=err[dtype],
+               max_abs_err_fp32=err[torch.float32])
     parts = ("not measured (no device events)" if row["parts_ms"] is None
              else ", ".join(f"{k} {v:.4f}" for k, v in row["parts_ms"].items()))
-    log(f"[timing] ssd_scan: {flops:.4e} flops, {n_ops:.4e} TF32 products' "
-        f"flops, {n_bytes} bytes; bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}, TF32 tensor cores), {row['bound_fp32_ms']:.4f} "
-        f"at the fp32 peak, {row['bound_bf16_ms']:.4f} at the bf16 "
-        f"tensor-core peak; kernel at {row['tflops']:.2f} TFLOP/s of scan "
-        f"flops, {100 * row['bound_ms'] / row['ms']:.1f}% of its bound")
+    log(f"[timing] ssd_scan: {flops:.4e} flops, {n_bytes} bytes; bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; flops at the bf16 "
+        f"tensor-core peak), {row['bound_tf32_form_ms']:.4f} for the "
+        f"kernel's form ({ssd.TF32_TERMS[dtype]} TF32 products a "
+        f"multiply-add at the TF32 peak), {row['bound_fp32_ms']:.4f} at the "
+        f"fp32 peak; kernel at {row['tflops']:.2f} TFLOP/s of scan flops, "
+        f"{100 * row['bound_ms'] / row['ms']:.1f}% of its bound, "
+        f"{100 * row['bound_tf32_form_ms'] / row['ms']:.1f}% of its form's")
     log(f"[timing] ssd_scan device ms a call by launch: {parts}")
     del args
     torch.cuda.empty_cache()
@@ -1091,8 +1118,10 @@ def main() -> int:
          "ms": scan["ms"], "plain_ms": scan["plain_ms"],
          "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
          "library_ms": None, "call_ms": scan["call_ms"],
+         "bound_tf32_form_ms": scan["bound_tf32_form_ms"],
          "bound_fp32_ms": scan["bound_fp32_ms"],
          "bound_bf16_ms": scan["bound_bf16_ms"],
+         "max_abs_err_fp32": scan["max_abs_err_fp32"],
          "parts_ms": scan["parts_ms"], "tflops": scan["tflops"],
          "shape": {**ssd_call, "dtype": "bfloat16 x, B, C; fp32 dt, A"}},
     ]

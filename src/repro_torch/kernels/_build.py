@@ -129,6 +129,12 @@ def build_all(kernels: Iterable[CudaKernel]) -> None:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
 
 
+def row_strides(t, n: int) -> list:
+    """The first ``n`` strides of ``t``; an axis of length 1 is only ever
+    read at index 0, so its stride is moot and passed as 0."""
+    return [0 if t.shape[i] == 1 else t.stride(i) for i in range(n)]
+
+
 def stream_ptr() -> ctypes.c_void_p:
     import torch
 

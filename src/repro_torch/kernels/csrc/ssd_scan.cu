@@ -72,10 +72,11 @@
 // are used: results repeat bit for bit. x, dt, Bm and Cm are read through
 // their strides (last stride 1); y is contiguous.
 //
-// What holds it back (PERF.md, profile_ssd on the H100): at the forward's
-// call the out kernel takes two thirds of the time. Its loads alone (2.5 GB
-// of L2 traffic a call for the state, x, C and C.B^T tiles, each read by
-// every q tile that needs it) keep 57% of its time, its arithmetic alone
+// What holds it back (PERF.md: copies of this kernel with one part taken
+// out, timed on an H100): at the forward's call the out kernel takes two
+// thirds of the time. Its loads alone (2.5 GB of L2 traffic a call for the
+// state, x, C and C.B^T tiles, each read by every q tile that needs it)
+// keep 57% of its time, its arithmetic alone
 // 76%; the products (4.9e7 mma.sync a call) are about a quarter of it and
 // the weights' exp an eighth, the two halves overlapping only in part at
 // 16 warps an SM. The next form keeps a unit's state and x in shared

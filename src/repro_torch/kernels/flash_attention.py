@@ -19,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import CudaKernel, stream_ptr
+from repro_torch.kernels._build import CudaKernel, row_strides, stream_ptr
 from repro_torch.models.layers import attention_reference
 
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
@@ -98,13 +98,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     width = hd  # the head dim the kernel sees
     if variant == "bf16_tc":
         unaligned = [t.data_ptr() % 16 != 0 or any(st % 8 for st in
-                                                   _row_strides(t))
+                                                   row_strides(t, 3))
                      for t in (q, k, v)]
         if any(unaligned):
             width = -(-hd // 8) * 8
             q, k, v = (_aligned_copy(t, width) if bad or width != hd else t
                        for t, bad in zip((q, k, v), unaligned))
-    strides = [_row_strides(t) for t in (q, k, v)]
+    strides = [row_strides(t, 3) for t in (q, k, v)]
     out = torch.empty((B, Sq, Hq, width), dtype=q.dtype, device=q.device)
     rc = KERNEL.lib().flash_attention_fwd(
         code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -114,12 +114,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     KERNEL.check(rc, "flash_attention kernel")
     KERNEL.count(variant)
     return out if width == hd else out[..., :hd].contiguous()
-
-
-def _row_strides(t):
-    """The batch, sequence and head strides; an axis of length 1 is only
-    ever read at index 0, so its stride is moot and passed as 0."""
-    return [0 if t.shape[i] == 1 else t.stride(i) for i in range(3)]
 
 
 def _aligned_copy(t, width: int):

@@ -10,7 +10,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, stream_ptr
+from repro_torch.kernels._build import CudaKernel, row_strides, stream_ptr
 from repro_torch.models.mamba import ssd_chunked_ref
 
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
@@ -53,12 +53,6 @@ def ssd_bytes(B: int, S: int, H: int, P: int, N: int, in_bytes: int) -> int:
     and dt, A read once, and the fp32 y written once."""
     return (B * S * (H * P + 2 * N) * in_bytes + (B * S * H + H) * 4
             + B * S * H * P * 4)
-
-
-def _strides(t, n):
-    """The first ``n`` strides; an axis of length 1 is only read at index
-    0, so its stride is moot and passed as 0."""
-    return [0 if t.shape[i] == 1 else t.stride(i) for i in range(n)]
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
@@ -124,8 +118,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
         _IN_DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
         Bm.data_ptr(), Cm.data_ptr(), cb.data_ptr(), cum.data_ptr(),
         aux.data_ptr(), etot.data_ptr(), states.data_ptr(), y.data_ptr(),
-        B, S, H, P, N, chunk, *_strides(x, 3), *_strides(dt, 3),
-        *_strides(Bm, 2), *_strides(Cm, 2), stream_ptr())
+        B, S, H, P, N, chunk, *row_strides(x, 3), *row_strides(dt, 3),
+        *row_strides(Bm, 2), *row_strides(Cm, 2), stream_ptr())
     KERNEL.launches += 1
     KERNEL.check(rc, "ssd_scan kernel")
     return y

@@ -131,3 +131,15 @@ def test_kernel_variant_counts():
     k.reset()
     assert k.launches == 0 and k.variant_launches == {"a": 0, "b": 0}
     assert k.target == fa.KERNEL.target  # one library a source
+
+
+def test_row_strides():
+    """The kernels' wrappers pass the leading strides as they are, and 0
+    for an axis of length 1 (read only at index 0)."""
+    from repro_torch.kernels._build import row_strides
+
+    t = torch.zeros((2, 1, 3, 4))
+    assert row_strides(t, 3) == [12, 0, 4]
+    view = torch.zeros((3, 5, 2, 8)).transpose(0, 1)[:, :1]  # (5, 1, 2, 8)
+    assert row_strides(view, 3) == [16, 0, 8]
+    assert row_strides(view, 2) == [16, 0]
