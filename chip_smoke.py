@@ -5,12 +5,17 @@
 
 Run from a checkout of the repository on a machine with a CUDA card and the
 CUDA toolkit. It builds the port's hand-written kernels from the checkout's
-sources, in parallel, and drives the port's three paths:
+sources, in parallel, and drives the port's paths:
 
 * the DTWN federated round: the segment-reduce and FedAvg kernels are held
   against their plain PyTorch versions at the round's shapes and timed,
   three full-width rounds run through ``DTWNSystem``, and one GPU round is
   checked against the same round on the CPU;
+* the same round under attack, faults and PBFT verification: three
+  full-width trimmed-mean rounds and one Krum round with model-replacement
+  attackers, stragglers, outages and the PBFT block term, the segment
+  kernel's launches held to the count the code makes, and a trimmed-mean
+  and a Krum round on the GPU checked against the same rounds on the CPU;
 * the LM serving path: the flash-attention kernel is held against its plain
   version on the reference tests' cases (fp32 through its CUDA-core
   variant, bf16 through its tensor-core variant), at head dims up to 256,
@@ -408,6 +413,182 @@ def phase_gpu_vs_cpu(torch, data) -> None:
                              f"relative difference {rel:.2e} > 1e-4")
     log(f"[gpu_vs_cpu] ok (tf32 off): same chosen and n_verified, loss "
         f"relative difference {rel:.2e} <= 1e-4")
+
+
+def robust_round_launches(cfg, n_leaves: int) -> int:
+    """Segment-kernel launches of one robust round, as the code makes them:
+    the robust Eq. 4 rule (trimmed mean: the cohort counts, per leaf a
+    centre numerator and denominator a peel pass and the weighted numerator
+    and denominator, then ``bs_w``; Krum: ``bs_aggregate_stacked`` on the
+    surviving weights), ``suspect_counts`` (3), ``update_dispersion`` (3:
+    ``segment_std``'s two moments and its counts) and the Eqs. 12 and 15
+    latency bill (2)."""
+    if cfg.aggregator == "trimmed_mean":
+        eq4 = 2 + n_leaves * (4 * cfg.trim_k + 2)
+    else:
+        eq4 = 1 + n_leaves
+    return eq4 + 3 + 3 + 2
+
+
+def _robust_config():
+    from repro_torch.core.consensus import ConsensusConfig
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.fl import FLConfig
+
+    return FLConfig(use_kernel_aggregation=True, aggregator="trimmed_mean",
+                    trim_k=1, malicious_frac=0.2, attack="model_replacement",
+                    faults=FaultConfig(),
+                    consensus=ConsensusConfig(quorum_f=1, byzantine_frac=0.2))
+
+
+def _verdicts(system) -> dict:
+    """The last block's chain verdicts, {BS: accepted}."""
+    return {t.sender: dict(t.meta).get("verified", False)
+            for t in system.chain.blocks[-1].transactions
+            if t.kind == "train_model"}
+
+
+def phase_robust_round(torch, sr, fr, data, kernels) -> dict:
+    """The paper's round under attack, faults and PBFT verification at full
+    width: 3 trimmed-mean rounds, then 1 Krum round, with every count set
+    to 0 just before and read just after."""
+    from repro_torch.core import comms, latency
+    from repro_torch.fl import (EXAMPLE_PARTICIPATING_USERS, DTWNSystem,
+                                example_association)
+
+    t_phase = time.perf_counter()
+    cfg = _robust_config()
+    system = DTWNSystem(cfg, data, seed=0)  # cuda by default
+    n_params = sum(v.numel() for v in system.params.values())
+    if n_params != CNN_PARAMS:
+        raise AssertionError(f"CNN has {n_params} params, not {CNN_PARAMS}")
+    down = comms.downlink_rate(system.wireless, system.h_down, system.dist)
+    eq16 = float(latency.t_block_validation(system.lat, down,
+                                            system._freqs_dev))
+    log(f"[robust] {cfg.n_users} users, {cfg.n_bs} BSs, CNN {n_params} "
+        f"params; malicious_frac {cfg.malicious_frac} "
+        f"({int(system.malicious.sum())} attackers, {cfg.attack}); "
+        f"{cfg.faults}; {cfg.consensus}; Eq. 16 constant {eq16:.6f} s")
+    plan = [cfg] * 3 + [dataclasses.replace(cfg, aggregator="krum",
+                                            krum_f=1)]
+    want = sum(robust_round_launches(c, len(system.params)) for c in plan)
+    _reset(kernels)  # every count, just before the path
+    for c in plan:
+        system.cfg = c
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = system.run_round(
+            example_association(system),
+            participating_users=EXAMPLE_PARTICIPATING_USERS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        log(f"[robust] round {info['round']} ({c.aggregator}): wall "
+            f"{wall:.1f} ms, loss {info['loss']:.6f}, round_time_s "
+            f"{info['round_time_s']:.6f}, consensus_time_s "
+            f"{info['consensus_time_s']:.6f}, verdicts {_verdicts(system)} "
+            f"({info['n_verified']}/{info['n_submitted']}), n_suspect "
+            f"{info['n_suspect']}, chosen attackers "
+            f"{int(system.malicious[info['chosen']].sum())}")
+        if not math.isfinite(info["loss"]):
+            raise AssertionError(f"loss is not finite: {info['loss']}")
+        if not info["chain_valid"]:
+            raise AssertionError("chain does not validate")
+        if not info["consensus_time_s"] > eq16:
+            raise AssertionError(
+                f"PBFT term {info['consensus_time_s']} is not above the Eq. "
+                f"16 constant {eq16} at byzantine fraction "
+                f"{c.consensus.byzantine_frac}")
+    launches = {"segment_reduce": sr.KERNEL.launches,
+                "fedavg_reduce": fr.KERNEL.launches}
+    log(f"[robust] kernel launches in 4 rounds: {json.dumps(launches)}; "
+        f"the code makes {want} segment launches; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if launches["segment_reduce"] != want:
+        raise AssertionError(f"segment kernel launched "
+                             f"{launches['segment_reduce']} times, not {want}")
+    if launches["fedavg_reduce"] <= 0:
+        raise AssertionError("fedavg kernel never launched in the robust "
+                             "rounds")
+    return launches
+
+
+def phase_robust_gpu_vs_cpu(torch, data) -> None:
+    """A trimmed-mean round and a Krum round, each under attack, faults and
+    PBFT from one shared state, on the CPU and on the card (the fault draws
+    come from the CPU generator on both). Besides the round's outputs, the
+    aggregators' survivor fractions are compared: Krum's must be equal
+    (its scores, sums of Gram-product distances, are summed in other
+    orders by cuBLAS and the CPU), the trimmed mean's may differ only at
+    near-tie coordinates."""
+    from repro_torch.core import comms, faults
+    from repro_torch.fl import (EXAMPLE_PARTICIPATING_USERS, DTWNSystem,
+                                example_association)
+    from repro_torch.models import cnn
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(2)
+    wcfg = comms.WirelessConfig(n_bs=5)
+    init = {"params": {k: v.numpy() for k, v in cnn.init_params(gen).items()},
+            "dist": comms.sample_distances(wcfg, gen).numpy(),
+            "h_up": comms.sample_channel(wcfg, gen).numpy(),
+            "h_down": comms.sample_channel(wcfg, gen).numpy()}
+    cfg = _robust_config()
+    plan = [cfg, dataclasses.replace(cfg, aggregator="krum", krum_f=1)]
+    runs, survivors = {}, []
+    aggregate = faults.robust_bs_aggregate_stacked
+
+    def recording(*a, **k):
+        out = aggregate(*a, **k)
+        survivors.append(out[2].cpu())
+        return out
+
+    faults.robust_bs_aggregate_stacked = recording
+    try:
+        assoc = None
+        for c in plan:
+            for dev in ("cpu", "cuda"):
+                system = DTWNSystem(c, data, seed=1, init_state=init,
+                                    device=dev)
+                if assoc is None:
+                    assoc = example_association(system).numpy()
+                info = system.run_round(
+                    assoc, participating_users=EXAMPLE_PARTICIPATING_USERS)
+                runs[dev, c.aggregator] = (info, _verdicts(system),
+                                           survivors[-1])
+                log(f"[robust_gpu_vs_cpu] {dev} {c.aggregator}: chosen "
+                    f"{info['chosen']}, verdicts {_verdicts(system)}, "
+                    f"n_suspect {info['n_suspect']}, loss {info['loss']:.7f}"
+                    f", round_time_s {info['round_time_s']:.7f}")
+    finally:
+        faults.robust_bs_aggregate_stacked = aggregate
+    for c in plan:
+        (cpu, v_cpu, s_cpu), (gpu, v_gpu, s_gpu) = (
+            runs["cpu", c.aggregator], runs["cuda", c.aggregator])
+        for key in ("chosen", "n_suspect"):
+            if gpu[key] != cpu[key]:
+                raise AssertionError(f"GPU and CPU {c.aggregator} rounds "
+                                     f"differ in {key}: {gpu[key]} vs "
+                                     f"{cpu[key]}")
+        if v_gpu != v_cpu:
+            raise AssertionError(f"GPU and CPU {c.aggregator} verdicts "
+                                 f"differ: {v_gpu} vs {v_cpu}")
+        rel = {k: abs(gpu[k] - cpu[k]) / abs(cpu[k])
+               for k in ("loss", "round_time_s")}
+        if rel["loss"] > 1e-4 or rel["round_time_s"] > 1e-5:
+            raise AssertionError(f"GPU vs CPU {c.aggregator}: relative "
+                                 f"differences {rel} above 1e-4 (loss) / "
+                                 f"1e-5 (round_time_s)")
+        surv = float((s_gpu - s_cpu).abs().max())
+        if c.aggregator == "krum" and (surv != 0.0 or s_cpu.min() > 0.0):
+            raise AssertionError(f"Krum must drop the same clients on the "
+                                 f"GPU ({s_gpu.tolist()}) as on the CPU "
+                                 f"({s_cpu.tolist()}), and at least one")
+        log(f"[robust_gpu_vs_cpu] ok {c.aggregator} (tf32 off): same chosen, "
+            f"verdicts and n_suspect; loss relative difference "
+            f"{rel['loss']:.2e} <= 1e-4, round_time_s "
+            f"{rel['round_time_s']:.2e} <= 1e-5; survivor fractions "
+            f"{s_gpu.tolist()}, max difference {surv:.3e}")
+    log(f"[robust_gpu_vs_cpu] phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def _flash_inputs(torch, gen, B, Sq, Sk, Hq, Hkv, hd, dtype, q_std=1.0):
@@ -1066,6 +1247,8 @@ def main() -> int:
         f"in {time.perf_counter() - t0:.1f} s")
     launches = phase_slice(torch, sr, fr, data, kernels)
     phase_gpu_vs_cpu(torch, data)
+    robust = phase_robust_round(torch, sr, fr, data, kernels)
+    phase_robust_gpu_vs_cpu(torch, data)
     del data
     served = phase_serve(torch, kernels, fa, serve)
     phase_serve_kernel_vs_plain(torch, serve)
@@ -1080,7 +1263,8 @@ def main() -> int:
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:212",
-         "launches": launches["segment_reduce"], "max_abs_err": seg_err,
+         "launches": launches["segment_reduce"],
+         "robust_launches": robust["segment_reduce"], "max_abs_err": seg_err,
          "ms": fc1["ms"], "plain_ms": fc1["plain_ms"],
          "bound_ms": fc1["bound_ms"], "bound_by": fc1["bound_by"],
          "library_ms": fc1["library_ms"], "call_ms": fc1["call_ms"],
@@ -1088,7 +1272,8 @@ def main() -> int:
         {"name": "fedavg_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
          "replaces": "src/repro/kernels/fedavg_reduce.py:19",
-         "launches": launches["fedavg_reduce"], "max_abs_err": fed_err,
+         "launches": launches["fedavg_reduce"],
+         "robust_launches": robust["fedavg_reduce"], "max_abs_err": fed_err,
          "ms": fed["ms"], "plain_ms": fed["plain_ms"],
          "bound_ms": fed["bound_ms"], "bound_by": fed["bound_by"],
          "library_ms": fed["library_ms"], "call_ms": fed["call_ms"],

@@ -6,8 +6,10 @@ hosted twin data (Eq. 6) and grows by ``reward`` for each local model that
 passes the verification gate: holdout loss within ``tolerance`` of the
 round's median, and a cohort that is not majority-suspect. Election and
 verification delegate to ``repro_torch.core.consensus`` (fp32), as the
-reference delegates to its own consensus core. This is the host audit-trail
-ledger; ``TwoTierChain`` waits for ROADMAP A5.
+reference delegates to its own consensus core. :class:`DPoSChain` is the host
+audit-trail ledger; :class:`TwoTierChain` is the committee ledger of Tang et
+al. 2024 built from DPoS chains, its committees from
+``consensus.bs_groups``.
 """
 from __future__ import annotations
 
@@ -124,10 +126,10 @@ class DPoSChain:
         """Record a per-BS aggregated model for verification.
 
         The optional keyword meta comes from the robust aggregation layer
-        (the reference's ``core/faults.py``; ROADMAP A5): ``n_clients``/``n_suspect`` are the BS
+        (``repro_torch.core.faults``): ``n_clients``/``n_suspect`` are the BS
         cohort size and how many of its client updates the aggregator
         discarded as outliers, ``dispersion`` the cohort's update-norm std
-        (``update_dispersion`` there). :meth:`verify_round`
+        (``faults.update_dispersion``). :meth:`verify_round`
         rejects majority-suspect cohorts regardless of loss; omitting the
         kwargs reproduces the original loss-only transaction exactly.
         """
@@ -248,4 +250,94 @@ class DPoSChain:
                 if (t.kind == "train_model" and t.round == round_
                         and dict(t.meta).get("verified", False)):
                     out.append(t.sender)
+        return out
+
+
+class TwoTierChain:
+    """Multi-tier ledger (Tang et al. 2024, arXiv 2411.02323), host side.
+
+    Tier 1 is one :class:`DPoSChain` per committee of BSs (the committee map
+    is ``consensus.bs_groups``); tier 2 is a :class:`DPoSChain` over the G
+    committees, staked with each committee's total twin data. Each
+    :meth:`produce_round` produces every committee's block and anchors its
+    hash on tier 2 as a ``checkpoint`` transaction, so rewriting a tier-1
+    block breaks the cross-tier check even when that committee's own hash
+    chain is consistently rewritten. Its latency is
+    ``consensus.t_consensus_two_tier``.
+    """
+
+    def __init__(self, n_nodes: int, twin_data_per_node: Sequence[float],
+                 n_groups: int = 2, **chain_kw):
+        self.n_nodes = n_nodes
+        self.n_groups = max(1, min(n_groups, n_nodes))
+        self.groups = [int(g) for g in
+                       consensus_mod.bs_groups(n_nodes, self.n_groups).tolist()]
+        self.members: List[List[int]] = [
+            [i for i in range(n_nodes) if self.groups[i] == g]
+            for g in range(self.n_groups)]
+        self._local = {i: self.members[self.groups[i]].index(i)
+                       for i in range(n_nodes)}
+        self.tier1 = [DPoSChain(len(m), [twin_data_per_node[i] for i in m],
+                                **chain_kw)
+                      for m in self.members]
+        self.tier2 = DPoSChain(
+            self.n_groups,
+            [sum(float(twin_data_per_node[i]) for i in m) or 1.0
+             for m in self.members],
+            **chain_kw)
+        self._round = 0
+
+    def _chain_of(self, sender: int) -> DPoSChain:
+        return self.tier1[self.groups[sender]]
+
+    def submit_model(self, sender: int, params, round_: int,
+                     holdout_loss: float, **meta_kw) -> Transaction:
+        """Route to the sender's committee chain (local sender index)."""
+        return self._chain_of(sender).submit_model(
+            self._local[sender], params, round_, holdout_loss, **meta_kw)
+
+    def verify_round(self) -> Dict[int, bool]:
+        """Per-committee verification against each committee's own median,
+        verdicts keyed by global BS id."""
+        verdicts: Dict[int, bool] = {}
+        for g, chain in enumerate(self.tier1):
+            for local, ok in chain.verify_round().items():
+                verdicts[self.members[g][local]] = ok
+        return verdicts
+
+    def produce_round(self) -> Block:
+        """Produce every tier-1 block, checkpoint each on tier 2, produce
+        the tier-2 block; returns that anchor block."""
+        for g, chain in enumerate(self.tier1):
+            blk = chain.produce_block()
+            self.tier2.submit_twin_update(g, blk.hash, self._round,
+                                          kind="checkpoint")
+        anchor = self.tier2.produce_block()
+        self._round += 1
+        return anchor
+
+    def validate(self) -> bool:
+        """Audit every tier and the cross-tier checkpoints: the r-th
+        checkpoint of committee g must be the hash of g's r-th block."""
+        if not self.tier2.validate_chain():
+            return False
+        if any(not c.validate_chain() for c in self.tier1):
+            return False
+        for r, blk in enumerate(self.tier2.blocks):
+            cps = {t.sender: t.payload_hash for t in blk.transactions
+                   if t.kind == "checkpoint"}
+            for g, chain in enumerate(self.tier1):
+                if r >= len(chain.blocks):
+                    return False
+                if cps.get(g) != chain.blocks[r].hash:
+                    return False
+        return True
+
+    @property
+    def stakes(self) -> List[float]:
+        """Global per-BS stake view, assembled from the committees."""
+        out = [0.0] * self.n_nodes
+        for g, chain in enumerate(self.tier1):
+            for local, s in enumerate(chain.stakes):
+                out[self.members[g][local]] = s
         return out

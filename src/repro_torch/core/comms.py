@@ -4,7 +4,8 @@
 OFDMA with C shared sub-channels between the M BSs and the MBS. The rates
 feed the latency model; they are simulation, not real links. Random draws
 take an explicit ``torch.Generator``; they are made on the CPU and moved to
-``device``, so a seed gives the same state on every device.
+``device``, so a seed gives the same state on every device. Functions of a
+fresh draw (``evolve_channel``) take the draw as an argument.
 """
 from __future__ import annotations
 
@@ -45,6 +46,14 @@ def sample_channel(cfg: WirelessConfig, gen: torch.Generator,
     return h.to(device)
 
 
+def evolve_channel(cfg: WirelessConfig, h, fresh) -> torch.Tensor:
+    """Gauss-Markov (AR-1) fading evolution of the MARL env dynamics:
+    ``rho * h + (1 - rho) * fresh``, with ``fresh`` (M, C) a new Rayleigh
+    draw (``sample_channel``)."""
+    rho = cfg.channel_corr
+    return rho * h + (1.0 - rho) * fresh
+
+
 def _noise_watt(cfg: WirelessConfig) -> float:
     return dbm_to_watt(cfg.noise_dbm_per_hz) * cfg.subchannel_bw_hz
 
@@ -61,6 +70,15 @@ def uplink_rate(cfg: WirelessConfig, tau, h, dist) -> torch.Tensor:
     sinr = sig / (interf + _noise_watt(cfg))
     per_ch = cfg.subchannel_bw_hz * torch.log2(1.0 + sinr)
     return torch.sum(tau * per_ch, dim=1)
+
+
+def apply_outage(rate, bad, floor) -> torch.Tensor:
+    """Gate a per-BS rate through a channel-outage mask: a BS whose (M,)
+    Gilbert-Elliott indicator ``bad`` is set keeps ``floor`` of its rate
+    (a deep fade, not a hard zero, which would make Eq. 14 infinite)."""
+    rate = torch.as_tensor(rate)
+    bad = torch.as_tensor(bad, device=rate.device)
+    return torch.where(bad, rate * floor, rate)
 
 
 def downlink_rate(cfg: WirelessConfig, h_down, dist) -> torch.Tensor:

@@ -1,18 +1,33 @@
-"""Consensus core (paper Section II-C), port of ``repro/core/consensus.py``.
+"""Consensus core (paper Section II-C + Eqs. 16/17), port of
+``repro/core/consensus.py``.
 
-Ported so far: the static :class:`ConsensusConfig`, the stake election and
-the vectorized verification gate, which the host ledger
-(``repro_torch.core.blockchain.DPoSChain``) delegates to. The device chain
-state, ``apply_round`` and the PBFT latency model wait for ROADMAP A5.
+- :class:`ChainState`: the per-BS chain view as tensors (stakes, a rolling
+  verdict/reward history, the block counter), advanced by
+  :func:`apply_round`.
+- :func:`elect_producers` and :func:`verify_metas`: the stake election and
+  the vectorized quality gate, which the host ledger
+  (``repro_torch.core.blockchain.DPoSChain``) delegates to.
+- :func:`t_consensus`: the PBFT latency model that replaces the fixed
+  Eq. 16 constant in the Eq. 17 round budget,
+  ``(t_preprepare + t_validate + 2 * t_quorum(f)) * (1 + vt * p / (1 - p))``;
+  at ``quorum_f=0`` and ``byzantine_frac=0`` it is Eq. 16 exactly.
+  :func:`t_consensus_two_tier` is the committee topology (Tang et al.
+  2024), :func:`consensus_time` dispatches on ``n_groups``.
+- :func:`chain_round`: one simulated round of submissions. Its random draws
+  (:func:`draw_byzantine`'s uniforms, :func:`submission_losses`' normals)
+  come in as arguments, since torch cannot repeat ``jax.random``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels.segment_reduce import segment_median
+from repro_torch.kernels.segment_reduce import segment_max, segment_median
+
+_BYZ_LOSS_OFFSET = 2.0  # holdout-loss penalty a byzantine BS's update carries
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +48,34 @@ class ConsensusConfig:
     n_groups: int = 1
 
 
+class ChainState(NamedTuple):
+    """Per-BS chain view as tensors.
+
+    ``stakes`` (M,) fp32 training coins (Eq. 6 init + rewards);
+    ``verdicts`` (H, M) fp32 rolling accept history (1 accepted, 0
+    rejected, 1 for rounds a BS did not submit), written at ``round % H``;
+    ``rewards`` (H, M) fp32 coins granted per round; ``round`` () int32
+    blocks produced so far.
+    """
+    stakes: torch.Tensor
+    verdicts: torch.Tensor
+    rewards: torch.Tensor
+    round: torch.Tensor
+
+
+def chain_init(ccfg: ConsensusConfig, data_per_bs) -> ChainState:
+    """Eq. 6: initial coins proportional to hosted twin data."""
+    d = torch.as_tensor(data_per_bs, dtype=torch.float32)
+    total = torch.clamp(torch.sum(d), min=1e-9)
+    m, dev = d.shape[0], d.device
+    return ChainState(
+        stakes=ccfg.s_ini * d / total,
+        verdicts=torch.ones((ccfg.history, m), dtype=torch.float32, device=dev),
+        rewards=torch.zeros((ccfg.history, m), dtype=torch.float32, device=dev),
+        round=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
 def elect_producers(stakes, n_producers: int) -> torch.Tensor:
     """Top-``n_producers`` BSs by stake, (n_producers,) int32.
 
@@ -42,6 +85,12 @@ def elect_producers(stakes, n_producers: int) -> torch.Tensor:
     order = torch.argsort(-torch.as_tensor(stakes, dtype=torch.float32),
                           stable=True)
     return order[:n_producers].to(torch.int32)
+
+
+def current_producer(state: ChainState, n_producers: int) -> torch.Tensor:
+    """Round-robin over the elected set, as the host ledger rotates."""
+    producers = elect_producers(state.stakes, n_producers)
+    return producers[torch.remainder(state.round, n_producers).long()]
 
 
 def verify_metas(losses, submitted, *, tolerance, n_clients=None,
@@ -68,3 +117,222 @@ def verify_metas(losses, submitted, *, tolerance, n_clients=None,
         suspect = (torch.as_tensor(n_suspect, dtype=torch.float32) * 2.0
                    > torch.as_tensor(n_clients, dtype=torch.float32))
     return sub & ok & ~suspect
+
+
+def apply_round(ccfg: ConsensusConfig, state: ChainState, losses, submitted,
+                *, n_clients=None, n_suspect=None, group=None):
+    """One verify-and-reward step: verdicts -> coins -> history -> rotate,
+    the host sequence ``verify_round(); produce_block()``. Returns
+    ``(new_state, verdicts)`` with verdicts (M,) bool."""
+    v = verify_metas(losses, submitted, tolerance=ccfg.tolerance,
+                     n_clients=n_clients, n_suspect=n_suspect,
+                     group=group, n_groups=max(ccfg.n_groups, 1))
+    dev = state.stakes.device
+    rew = torch.where(v, ccfg.reward, 0.0).to(torch.float32)
+    slot = torch.remainder(state.round, ccfg.history)
+    sub = torch.as_tensor(submitted, dtype=torch.bool, device=dev)
+    # non-submitters keep the benign prior: no evidence is not a rejection
+    hist_row = torch.where(sub, v, True).to(torch.float32)
+    row = (torch.arange(ccfg.history, dtype=torch.int32, device=dev)
+           == slot)[:, None]
+    return ChainState(
+        stakes=state.stakes + rew,
+        verdicts=torch.where(row, hist_row[None, :], state.verdicts),
+        rewards=torch.where(row, rew[None, :], state.rewards),
+        round=state.round + 1,
+    ), v
+
+
+def accept_rate(state: ChainState) -> torch.Tensor:
+    """(M,) mean accept verdict over the rolling history window."""
+    return torch.mean(state.verdicts, dim=0)
+
+
+def stake_share(state: ChainState) -> torch.Tensor:
+    """(M,) per-BS share of total stake (sums to 1)."""
+    return state.stakes / torch.clamp(torch.sum(state.stakes), min=1e-9)
+
+
+# ---- PBFT consensus-latency model -------------------------------------------
+
+
+def _override(value, default):
+    return default if value is None else value
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _log2_at_least_2(n) -> float:
+    return math.log2(max(n, 2))
+
+
+def t_consensus(params, ccfg: ConsensusConfig, downlink, freqs, *,
+                quorum_f=None, byz_frac=None,
+                block_size_bits=None) -> torch.Tensor:
+    """PBFT consensus latency over the M BSs (0-dim, seconds).
+
+    ``params`` is a ``latency.LatencyParams``. The keyword overrides take
+    per-scenario values; the config supplies the defaults. Phases:
+    pre-prepare (the Eq. 16 propagation term), validate (the Eq. 16
+    validation term), two quorum waits, times the view-change factor.
+    """
+    downlink = torch.as_tensor(downlink, dtype=torch.float32)
+    freqs = torch.as_tensor(freqs, dtype=torch.float32,
+                            device=downlink.device)
+    m = downlink.shape[0]
+    sb = _override(block_size_bits,
+                   _override(ccfg.block_size_bits, params.block_size_bits))
+    safe_down = torch.clamp(downlink, min=1.0)
+    pre = torch.max(params.xi * _log2_at_least_2(params.n_producers)
+                    * sb / safe_down)
+    val = torch.max(sb / 8.0 * params.cycles_per_val_byte / freqs)
+    tq = _quorum_wait(params, ccfg, safe_down, m,
+                      _override(quorum_f, ccfg.quorum_f))
+    return (pre + val + 2.0 * tq) * _view_change_factor(
+        ccfg, _override(byz_frac, ccfg.byzantine_frac), downlink.device)
+
+
+def _quorum_wait(params, ccfg, safe_down, m, quorum_f) -> torch.Tensor:
+    """Prepare/commit phase wait: (2f)-th smallest per-link header time."""
+    msg = (params.xi * _log2_at_least_2(m)
+           * _f32(ccfg.header_bits, safe_down.device) / safe_down)
+    srt = torch.sort(msg).values
+    need = torch.clamp(2 * torch.as_tensor(quorum_f, dtype=torch.int64,
+                                           device=msg.device), 0, m)
+    kth = srt[torch.clamp(need - 1, 0, m - 1)]
+    return torch.where(need > 0, kth, torch.zeros_like(kth))
+
+
+def _view_change_factor(ccfg: ConsensusConfig, byz_frac,
+                        device=None) -> torch.Tensor:
+    """1 + view_timeout * E[failed views]; exactly 1 at byz_frac = 0."""
+    p = torch.clamp(_f32(byz_frac, device), 0.0, 0.95)
+    return 1.0 + ccfg.view_timeout * p / (1.0 - p)
+
+
+def bs_groups(n_bs: int, n_groups: int, device=None) -> torch.Tensor:
+    """(M,) int32 committee map: round-robin, the Eq. 4/5 grouping one
+    level up."""
+    return torch.arange(n_bs, dtype=torch.int32, device=device) % max(
+        n_groups, 1)
+
+
+def t_consensus_two_tier(params, ccfg: ConsensusConfig, downlink, freqs, *,
+                         n_groups: Optional[int] = None, quorum_f=None,
+                         byz_frac=None, block_size_bits=None) -> torch.Tensor:
+    """Tang et al. 2024 multi-tier consensus latency (0-dim, seconds).
+
+    Tier 1: the M BSs split into G committees (:func:`bs_groups`), each
+    running PBFT on the full block in parallel; the slowest committee ends
+    the tier. Tier 2: each committee's best-connected member runs PBFT with
+    the other delegates over a checkpoint block of G headers. ``G=1`` is
+    :func:`t_consensus` exactly. Per-committee maxima go through
+    :func:`segment_max`.
+    """
+    g = max(_override(n_groups, ccfg.n_groups), 1)
+    if g <= 1:
+        return t_consensus(params, ccfg, downlink, freqs, quorum_f=quorum_f,
+                           byz_frac=byz_frac, block_size_bits=block_size_bits)
+    downlink = torch.as_tensor(downlink, dtype=torch.float32)
+    dev = downlink.device
+    freqs = torch.as_tensor(freqs, dtype=torch.float32, device=dev)
+    m = downlink.shape[0]
+    group = bs_groups(m, g, dev)
+    sb = _override(block_size_bits,
+                   _override(ccfg.block_size_bits, params.block_size_bits))
+    f = torch.as_tensor(_override(quorum_f, ccfg.quorum_f), dtype=torch.int64,
+                        device=dev)
+    safe_down = torch.clamp(downlink, min=1.0)
+    header = _f32(ccfg.header_bits, dev)
+
+    # tier 1: intra-committee PBFT, all committees in parallel
+    prop = params.xi * _log2_at_least_2(params.n_producers) * sb / safe_down
+    val = sb / 8.0 * params.cycles_per_val_byte / freqs
+    pre_g = segment_max(prop, group, g)
+    val_g = segment_max(val, group, g)
+    msg = (params.xi * _log2_at_least_2(math.ceil(m / g)) * header
+           / safe_down)
+    # per-committee (2f)-th smallest member header time, f clipped feasible
+    mask = group[None, :] == torch.arange(g, dtype=torch.int32,
+                                          device=dev)[:, None]
+    sizes = torch.sum(mask.to(torch.int64), dim=1)
+    srt = torch.sort(torch.where(mask, msg[None, :], math.inf), dim=1).values
+    f_g = torch.minimum(f, torch.div(sizes - 1, 2, rounding_mode="floor"))
+    need = torch.clamp(2 * f_g, 0, m)
+    kth = torch.gather(srt, 1, torch.clamp(need - 1, 0, m - 1)[:, None])[:, 0]
+    tq_g = torch.where(need > 0, kth, torch.zeros_like(kth))
+    tier1 = torch.max(pre_g + val_g + 2.0 * tq_g)
+
+    # tier 2: checkpoint PBFT over the G delegates (each committee's
+    # best-connected member); the checkpoint block carries a digest a group
+    lead_down = torch.clamp(segment_max(safe_down, group, g), min=1.0)
+    lead_freq = torch.clamp(segment_max(freqs, group, g), min=1.0)
+    cp_bits = header * g
+    pre2 = torch.max(params.xi * _log2_at_least_2(min(params.n_producers, g))
+                     * cp_bits / lead_down)
+    val2 = torch.max(cp_bits / 8.0 * params.cycles_per_val_byte / lead_freq)
+    msg2 = params.xi * _log2_at_least_2(g) * header / lead_down
+    srt2 = torch.sort(msg2).values
+    f2 = torch.clamp(f, max=(g - 1) // 2)
+    need2 = torch.clamp(2 * f2, 0, g)
+    kth2 = srt2[torch.clamp(need2 - 1, 0, g - 1)]
+    tq2 = torch.where(need2 > 0, kth2, torch.zeros_like(kth2))
+    tier2 = pre2 + val2 + 2.0 * tq2
+
+    return (tier1 + tier2) * _view_change_factor(
+        ccfg, _override(byz_frac, ccfg.byzantine_frac), dev)
+
+
+def consensus_time(params, ccfg: ConsensusConfig, downlink, freqs, *,
+                   quorum_f=None, byz_frac=None,
+                   block_size_bits=None) -> torch.Tensor:
+    """Flat or two-tier PBFT latency, on ``ccfg.n_groups``."""
+    fn = t_consensus_two_tier if ccfg.n_groups > 1 else t_consensus
+    return fn(params, ccfg, downlink, freqs, quorum_f=quorum_f,
+              byz_frac=byz_frac, block_size_bits=block_size_bits)
+
+
+# ---- per-round chain simulation (scenario / env bodies) ---------------------
+
+
+def draw_byzantine(u, byz_frac) -> torch.Tensor:
+    """(M,) bool byzantine-BS mask from (M,) uniforms ``u``."""
+    u = torch.as_tensor(u)
+    return u < _f32(byz_frac, u.device)
+
+
+def submission_losses(z, byz, base: float = 0.5,
+                      noise: float = 0.1) -> torch.Tensor:
+    """Per-BS holdout-loss proxy from (M,) standard normals ``z``: honest
+    noise plus the byzantine offset. Stands in for FL holdout losses where
+    the chain is simulated without training."""
+    honest = base + noise * torch.as_tensor(z, dtype=torch.float32)
+    byz = torch.as_tensor(byz, device=honest.device)
+    return honest + torch.where(byz, _BYZ_LOSS_OFFSET, 0.0)
+
+
+def chain_round(ccfg: ConsensusConfig, state: ChainState, z, byz,
+                occupancy):
+    """One round's submissions (losses from the normals ``z``), verified,
+    and the chain advanced. ``occupancy`` (M,) per-BS twin counts: a BS
+    with no twins submits nothing. Returns ``(new_state, verdicts,
+    accept_frac)``, ``accept_frac`` the accepted share of submitters."""
+    byz = torch.as_tensor(byz)
+    losses = submission_losses(z, byz)
+    submitted = torch.as_tensor(occupancy, dtype=torch.float32,
+                                device=losses.device) > 0.0
+    group = (bs_groups(byz.shape[0], ccfg.n_groups, losses.device)
+             if ccfg.n_groups > 1 else None)
+    state2, v = apply_round(ccfg, state, losses, submitted, group=group)
+    n_sub = torch.clamp(torch.sum(submitted.to(torch.float32)), min=1.0)
+    accept_frac = torch.sum(v.to(torch.float32)) / n_sub
+    return state2, v, accept_frac
+
+
+def honest_stake_share(state: ChainState, byz) -> torch.Tensor:
+    """Share of total stake held by non-byzantine BSs (0-dim, in [0, 1])."""
+    byz = torch.as_tensor(byz, device=state.stakes.device)
+    honest = torch.where(byz, 0.0, state.stakes)
+    return torch.sum(honest) / torch.clamp(torch.sum(state.stakes), min=1e-9)

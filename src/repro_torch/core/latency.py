@@ -8,8 +8,9 @@ One federated round (Eq. 17) =
 
 Total learning time (objective of Eq. 18) = T_round / (1 - theta_G).
 Every per-BS sum goes through the segment-reduce dispatch, so on the card
-Eqs. 12 and 15 each launch the hand kernel once. The PBFT consensus term
-(``consensus=`` a config) waits for ROADMAP A5.
+Eqs. 12 and 15 each launch the hand kernel once. ``consensus=`` a
+``repro_torch.core.consensus.ConsensusConfig`` swaps the Eq. 16 constant for
+the PBFT consensus latency.
 """
 from __future__ import annotations
 
@@ -122,12 +123,16 @@ def t_block_validation(params: LatencyParams, downlink, freqs) -> torch.Tensor:
 
 def consensus_term(params: LatencyParams, downlink, freqs,
                    consensus=None) -> torch.Tensor:
-    """The Eq. 17 block term: the Eq. 16 constant. The PBFT model selected
-    by a ``consensus`` config waits for ROADMAP A5."""
-    if consensus is not None:
-        raise NotImplementedError(
-            "the PBFT consensus latency term is not ported yet (ROADMAP A5)")
-    return t_block_validation(params, downlink, freqs)
+    """The Eq. 17 block term: the Eq. 16 constant when ``consensus`` is
+    None, else the PBFT model (flat or two-tier on ``n_groups``) of that
+    ``ConsensusConfig``, priced from the same downlink rates. Imported
+    lazily, as in the reference, so the two modules never import each other
+    in a cycle."""
+    if consensus is None:
+        return t_block_validation(params, downlink, freqs)
+    from repro_torch.core import consensus as consensus_mod
+
+    return consensus_mod.consensus_time(params, consensus, downlink, freqs)
 
 
 def round_time_per_bs(params: LatencyParams, assoc, b, data_sizes, freqs,

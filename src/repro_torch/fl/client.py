@@ -4,7 +4,13 @@
 A twin trains the shared model on its own shard with momentum SGD for
 ``local_iters`` iterations and returns the updated parameters. Batch indices
 come from the same host ``np.random.RandomState(seed)`` draws as the
-reference. The attack trainers wait for ROADMAP A5.
+reference.
+
+Malicious clients (``make_attack_trainer``) are the paper's untrusted users:
+a label-flip attacker trains on flipped labels (class c -> C-1-c); a
+model-replacement attacker also scales its update by ``boost``. The defence
+is ``repro_torch.core.faults``' robust aggregation and the chain's verify
+gate.
 """
 from __future__ import annotations
 
@@ -29,6 +35,21 @@ def sgd_step(loss_fn: Callable, opt, params, opt_state, batch):
             {k: p.detach() for k, p in zip(keys, leaves)},
             dict(zip(keys, grads)), opt_state)
     return params, opt_state, loss.detach()
+
+
+def local_sgd(loss_fn: Callable, opt, params, xs, ys):
+    """``local_iters`` SGD steps over pre-gathered batches ``xs``/``ys``
+    (local_iters, batch, ...), from a fresh optimizer state. Returns
+    ``(params, opt_state, losses (local_iters,))``."""
+    from repro_torch.core import sharding
+
+    opt_state = sharding.stamp_replicated(opt.init(params))
+    losses = []
+    for x, y in zip(xs, ys):
+        params, opt_state, loss = sgd_step(loss_fn, opt, params, opt_state,
+                                           {"images": x, "labels": y})
+        losses.append(loss)
+    return params, opt_state, torch.stack(losses)
 
 
 def make_local_trainer(loss_fn: Callable, lr: float = 0.05,
@@ -66,3 +87,41 @@ def make_local_trainer(loss_fn: Callable, lr: float = 0.05,
         return params, torch.stack(losses).tolist() if losses else []
 
     return train_local
+
+
+ATTACKS = ("label_flip", "model_replacement")
+
+
+def flip_labels(labels, n_classes: int = 10):
+    """Deterministic label permutation c -> (C-1) - c (its own inverse), on
+    numpy arrays or tensors."""
+    return (n_classes - 1) - labels
+
+
+def make_attack_trainer(loss_fn: Callable, attack: str = "label_flip",
+                        lr: float = 0.05, momentum: float = 0.9,
+                        boost: float = 5.0, n_classes: int = 10):
+    """A drop-in ``train_local`` whose client is malicious.
+
+    ``"label_flip"`` trains honestly on flipped labels.
+    ``"model_replacement"`` also flips them, then returns
+    ``old + boost * (new - old)`` to dominate the Eq. 4 weighted mean.
+    """
+    if attack not in ATTACKS:
+        raise ValueError(f"attack must be one of {ATTACKS}, got {attack!r}")
+    base = make_local_trainer(loss_fn, lr=lr, momentum=momentum)
+
+    def train_malicious(params, data_x, data_y, *, batch_size: int,
+                        local_iters: int, seed: int,
+                        rows: Optional[np.ndarray] = None):
+        new_params, losses = base(params, data_x,
+                                  flip_labels(data_y, n_classes),
+                                  batch_size=batch_size,
+                                  local_iters=local_iters, seed=seed,
+                                  rows=rows)
+        if attack == "model_replacement":
+            new_params = {k: params[k] + boost * (new_params[k] - params[k])
+                          for k in new_params}
+        return new_params, losses
+
+    return train_malicious

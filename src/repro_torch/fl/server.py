@@ -1,15 +1,16 @@
 """The DTWN federated system driver (paper Sections II + V), port of
 ``repro/fl/server.py``.
 
-One round: twin shards -> local training of the sampled twins (client) ->
-Eq. 4 BS aggregation of the stacked twin models on the device
-(``hierarchy.bs_aggregate_stacked``) -> DPoS chain verification -> Eq. 5 (or
-Eq. 3 through the FedAvg kernel) global model -> latency bill (Eqs. 12-17).
+One round: twin shards -> local training of the sampled twins (client; the
+malicious ones through an attack trainer) -> Eq. 4 BS aggregation of the
+stacked twin models on the device (``hierarchy.bs_aggregate_stacked``, or a
+robust rule of ``core.faults``) -> DPoS chain verification -> Eq. 5 (or Eq. 3
+through the FedAvg kernel) global model -> latency bill (Eqs. 12-17, with
+stragglers and outages under ``faults`` and the PBFT block term under
+``consensus``).
 
-The port runs the fedavg path. The options outside it raise
-``NotImplementedError`` naming the ROADMAP item that ports them: robust
-aggregators, attackers, faults and the consensus workload (A5) and scenario
-rows (A8). The MARL round hook ``marl_actions`` comes with A7.
+Scenario rows raise ``NotImplementedError`` (ROADMAP A8); the MARL round hook
+``marl_actions`` comes with A7.
 """
 from __future__ import annotations
 
@@ -23,8 +24,10 @@ from repro_torch import bridge
 from repro_torch.core import association as assoc_mod
 from repro_torch.core import blockchain as bc
 from repro_torch.core import comms, hierarchy, latency
+from repro_torch.core import consensus as consensus_mod
+from repro_torch.core import faults as faults_mod
 from repro_torch.core.marl.env import bs_frequencies
-from repro_torch.fl.client import make_local_trainer
+from repro_torch.fl.client import make_attack_trainer, make_local_trainer
 from repro_torch.fl.partition import dirichlet_partition, iid_partition
 from repro_torch.models import cnn
 from repro_torch.utils.device import default_device
@@ -42,28 +45,17 @@ class FLConfig:
     weighted_global: bool = False         # Eq. 5 unweighted (paper) by default
     partition: str = "iid"       # "iid" | "dirichlet"
     alpha: Optional[float] = None  # Dirichlet label-skew concentration
-    # the fault/adversary and consensus axes of the reference: only their
-    # neutral values are ported, any other raises (ROADMAP A5)
-    aggregator: str = "fedavg"
-    malicious_frac: float = 0.0
-    faults: Optional[object] = None
-    consensus: Optional[object] = None
-
-
-def _check_ported(cfg: FLConfig, scenario) -> None:
-    unported = []
-    if cfg.aggregator != "fedavg":
-        unported.append(f"aggregator={cfg.aggregator!r} (ROADMAP A5)")
-    if cfg.malicious_frac > 0.0:
-        unported.append("malicious_frac > 0 (ROADMAP A5)")
-    if cfg.faults is not None:
-        unported.append("faults (ROADMAP A5)")
-    if cfg.consensus is not None:
-        unported.append("consensus (ROADMAP A5)")
-    if scenario is not None:
-        unported.append("scenario rows (ROADMAP A8)")
-    if unported:
-        raise NotImplementedError("not ported yet: " + ", ".join(unported))
+    # fault/adversary axis (core.faults + the attack trainers of fl.client)
+    aggregator: str = "fedavg"   # "fedavg" | "trimmed_mean" | "krum"
+    trim_k: int = 1              # trimmed mean: extremes peeled per side
+    krum_f: int = 1              # krum: clients dropped per BS cohort
+    malicious_frac: float = 0.0  # Bernoulli attacker fraction
+    attack: str = "label_flip"   # "label_flip" | "model_replacement"
+    attack_boost: float = 5.0    # model-replacement update scaling
+    faults: Optional[faults_mod.FaultConfig] = None  # stragglers, outages
+    # consensus axis: the PBFT block term of Eq. 17, and the chain's stake,
+    # reward and tolerance
+    consensus: Optional[consensus_mod.ConsensusConfig] = None
 
 
 class DTWNSystem:
@@ -76,15 +68,21 @@ class DTWNSystem:
     system from given CNN weights and channels, for instance a reference
     system's; without it they are drawn from ``torch.Generator`` seeded
     with ``seed``. The host RNG streams are the reference's: ``seed`` for
-    the partition, ``seed + 1`` for the participants, ``seed + 31`` for the
+    the partition, ``seed + 1`` for the participants, ``seed + 7`` for the
+    attacker draw (only when ``malicious_frac > 0``), ``seed + 31`` for the
     evaluation batches and ``round * 1000 + u`` for twin ``u``'s batches.
+    The fault draws come from ``torch.Generator(seed + 17)``, one round's
+    in a fixed order (``faults.sample_fault_draws``): the reference folds
+    the round into a ``jax.random`` key, which torch cannot repeat.
     ``device`` defaults to ``cuda`` and raises when no card is present.
     """
 
     def __init__(self, cfg: FLConfig, data, seed: int = 0, *,
                  init_state: Optional[dict] = None, device=None,
                  scenario=None):
-        _check_ported(cfg, scenario)
+        if scenario is not None:
+            raise NotImplementedError(
+                "not ported yet: scenario rows (ROADMAP A8)")
         self.device = default_device(device)
         (self.x, self.y), (self.x_test, self.y_test), self.dataset = data
         self.cfg = cfg
@@ -100,12 +98,26 @@ class DTWNSystem:
         # the frequency table cycles past its length (the env's law)
         self.freqs = bs_frequencies(cfg).numpy()
         self.trainer = make_local_trainer(cnn.loss_fn, lr=cfg.lr)
+        # the attacker draw only when asked for: a zero fraction consumes
+        # no host RNG
+        self.malicious = np.zeros(cfg.n_users, bool)
+        if cfg.malicious_frac > 0.0:
+            draw_rng = np.random.RandomState(seed + 7)
+            self.malicious = (draw_rng.uniform(size=cfg.n_users)
+                              < cfg.malicious_frac)
+        self._attacker = None  # built lazily: self.malicious is mutable
+        self._fault_gen = torch.Generator().manual_seed(seed + 17)
         self.wireless = comms.WirelessConfig(n_bs=cfg.n_bs)
         self.lat = latency.LatencyParams()
+        # the ledger shares stake init, reward and tolerance with the
+        # consensus workload when it is on
+        chain_kw = {} if cfg.consensus is None else dict(
+            s_ini=cfg.consensus.s_ini, reward=cfg.consensus.reward,
+            tolerance=cfg.consensus.tolerance)
         self.chain = bc.DPoSChain(
             cfg.n_bs,
             twin_data_per_node=[1.0] * cfg.n_bs,  # re-staked after association
-            n_producers=min(3, cfg.n_bs))
+            n_producers=min(3, cfg.n_bs), **chain_kw)
         if init_state is None:
             gen = torch.Generator().manual_seed(seed)
             self.params = cnn.init_params(gen, device=self.device)
@@ -132,6 +144,22 @@ class DTWNSystem:
         self._sizes_dev = torch.as_tensor(self.data_sizes, device=self.device)
 
     # ------------------------------------------------------------------
+    @property
+    def attacker(self):
+        """The malicious local trainer (``FLConfig.attack``), built on first
+        use so ``self.malicious`` can be set after init."""
+        if self._attacker is None:
+            self._attacker = make_attack_trainer(
+                cnn.loss_fn, attack=self.cfg.attack, lr=self.cfg.lr,
+                boost=self.cfg.attack_boost)
+        return self._attacker
+
+    def round_fault_draws(self) -> faults_mod.FaultDraws:
+        """This round's straggler and outage draws, from the system's fault
+        generator."""
+        return faults_mod.sample_fault_draws(
+            self._fault_gen, self.cfg.n_users, self.cfg.n_bs, self.device)
+
     def _eval_batch(self, n: int) -> dict:
         n = min(n, self.x_test.shape[0])
         idx = self._eval_rng.choice(self.x_test.shape[0], size=n,
@@ -181,12 +209,21 @@ class DTWNSystem:
             self.wireless, torch.as_tensor(tau, dtype=torch.float32,
                                            device=dev), self.h_up, self.dist)
         down = comms.downlink_rate(self.wireless, self.h_down, self.dist)
-        t_round = float(latency.round_time(
-            self.lat, torch.as_tensor(assoc, device=dev),
-            torch.as_tensor(b, dtype=torch.float32, device=dev),
-            self._sizes_dev, self._freqs_dev, up, down))
-        t_consensus = float(latency.consensus_term(self.lat, down,
-                                                   self._freqs_dev))
+        assoc_t = torch.as_tensor(assoc, device=dev)
+        b_t = torch.as_tensor(b, dtype=torch.float32, device=dev)
+        if cfg.faults is not None:
+            # straggler slowdowns inflate b, outages gate the uplink
+            t_round = float(faults_mod.faulty_round_time(
+                self.lat, cfg.faults, self.round_fault_draws(), assoc_t, b_t,
+                self._sizes_dev, self._freqs_dev, up, down,
+                consensus=cfg.consensus))
+        else:
+            t_round = float(latency.round_time(
+                self.lat, assoc_t, b_t, self._sizes_dev, self._freqs_dev, up,
+                down, consensus=cfg.consensus))
+        # the block term inside t_round: Eq. 16, or the PBFT model
+        t_consensus = float(latency.consensus_term(
+            self.lat, down, self._freqs_dev, cfg.consensus))
 
         # --- local training on a sample of twins ---
         if active is None:
@@ -203,7 +240,8 @@ class DTWNSystem:
             shard = self.shards[u]
             # clamp to the shard, so the batch trained is the b*D_j billed
             n_use = min(shard.size, max(8, int(b[u] * shard.size)))
-            p_u, _ = self.trainer(
+            trainer = self.attacker if self.malicious[u] else self.trainer
+            p_u, _ = trainer(
                 self.params, self._x_dev, self._y_dev,
                 batch_size=cfg.batch_size, local_iters=cfg.local_iters,
                 seed=self._round * 1000 + int(u), rows=shard[:n_use])
@@ -213,20 +251,40 @@ class DTWNSystem:
 
         # --- Eq. 4: per-BS aggregation + blockchain transactions ---
         bs_models, bs_sizes = [], []
+        n_suspect_total = 0
         if twin_models:
             stacked = {k: torch.stack([m[k] for m in twin_models])
                        for k in twin_models[0]}
-            per_bs_tree, bs_w = hierarchy.bs_aggregate_stacked(
-                stacked, torch.tensor(twin_sizes, dtype=torch.float32,
-                                      device=dev),
-                torch.tensor(twin_bs, dtype=torch.int32, device=dev), M)
+            sizes_dev = torch.tensor(twin_sizes, dtype=torch.float32,
+                                     device=dev)
+            assoc_dev = torch.tensor(twin_bs, dtype=torch.int32, device=dev)
+            robust = cfg.aggregator != "fedavg"
+            if robust:
+                # the robust rule; survivor fractions feed the suspect gate
+                per_bs_tree, bs_w, survivor = \
+                    faults_mod.robust_bs_aggregate_stacked(
+                        stacked, sizes_dev, assoc_dev, M,
+                        aggregator=cfg.aggregator, trim_k=cfg.trim_k,
+                        krum_f=cfg.krum_f)
+                n_cli, n_sus = faults_mod.suspect_counts(survivor, assoc_dev,
+                                                         M)
+                disp = faults_mod.update_dispersion(stacked, assoc_dev, M)
+                n_cli, n_sus, disp = (t.cpu().numpy()
+                                      for t in (n_cli, n_sus, disp))
+                n_suspect_total = int(n_sus.sum())
+            else:
+                per_bs_tree, bs_w = hierarchy.bs_aggregate_stacked(
+                    stacked, sizes_dev, assoc_dev, M)
             bs_w_host = bs_w.cpu().numpy()
             for j in range(M):
                 if bs_w_host[j] <= 0.0:
                     continue
                 agg = {k: v[j] for k, v in per_bs_tree.items()}
                 hl = self.holdout_loss(agg, n=256)
-                self.chain.submit_model(j, agg, self._round, hl)
+                meta = {} if not robust else dict(
+                    n_clients=int(n_cli[j]), n_suspect=int(n_sus[j]),
+                    dispersion=float(disp[j]))
+                self.chain.submit_model(j, agg, self._round, hl, **meta)
                 bs_models.append((j, agg))
                 bs_sizes.append(float(bs_w_host[j]))
 
@@ -253,7 +311,7 @@ class DTWNSystem:
             "loss": self.holdout_loss(self.params),
             "n_verified": sum(verdicts.values()) if verdicts else 0,
             "n_submitted": len(verdicts),
-            "n_suspect": 0,
+            "n_suspect": n_suspect_total,
             "chain_valid": self.chain.validate_chain(),
         }
 

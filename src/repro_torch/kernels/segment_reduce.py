@@ -20,7 +20,9 @@ strategy is a backend behind one dispatch, as in the reference:
 ``"onehot"``
     The dense ``(N, M)`` one-hot contraction: the parity oracle.
 ``"sharded"``
-    Not ported yet (ROADMAP A10).
+    Not ported yet (ROADMAP A10). ``"auto"`` resolves to it inside a
+    ``repro_torch.core.sharding.twin_scope``, so a scoped reduction raises
+    instead of giving the single-device sum.
 
 ``resolve_backend`` picks ``"kernel"`` for every CUDA tensor, so each
 per-BS sum of the round runs the hand kernel on the card. On the CPU it
@@ -51,6 +53,29 @@ _TILED_MAX_SEGMENTS = 32
 
 # Twin-axis tile of the plain tiled version (the reference's _PALLAS_BLOCK).
 _TILE = 1024
+
+# Mesh axis name of the twin dimension, named here so the kernel layer needs
+# no upward import.
+TWIN_AXIS = "twin"
+
+# Scope probe registered by repro_torch.core.sharding: a zero-arg callable
+# returning the active twin-axis name inside a twin scope, else None.
+_TWIN_AXIS_HOOK = None
+
+
+def register_twin_axis_hook(fn) -> None:
+    """Install the scope probe ``fn() -> str | None``."""
+    global _TWIN_AXIS_HOOK
+    _TWIN_AXIS_HOOK = fn
+
+
+def _active_twin_axis():
+    return _TWIN_AXIS_HOOK() if _TWIN_AXIS_HOOK is not None else None
+
+
+def _refuse_sharded(what: str) -> None:
+    raise NotImplementedError(
+        f"the sharded {what} is not ported yet (ROADMAP A10)")
 
 KERNEL = CudaKernel("segment_reduce.cu", {
     "seg_reduce_f32": (ctypes.c_int, (
@@ -235,10 +260,9 @@ def segment_reduce(values, assoc, num_segments: int, *,
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if backend == "sharded":
-        raise NotImplementedError(
-            "the sharded segment-reduce backend is not ported yet "
-            "(ROADMAP A10)")
+    if backend == "sharded" or (backend == "auto"
+                                and _active_twin_axis() is not None):
+        _refuse_sharded("segment-reduce backend")
     values = torch.as_tensor(values)
     assoc = torch.as_tensor(assoc, device=values.device)
     _check_shapes(values, assoc)
@@ -267,6 +291,8 @@ def segment_count(assoc, num_segments: int, *, backend: str = "auto"
 
 
 def _segment_extreme(values, assoc, num_segments: int, *, largest: bool):
+    if _active_twin_axis() is not None:  # the reference's pmax/pmin path
+        _refuse_sharded("segment max/min")
     values = torch.as_tensor(values)
     assoc = torch.as_tensor(assoc, device=values.device)
     _check_shapes(values, assoc)

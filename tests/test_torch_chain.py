@@ -115,3 +115,51 @@ def test_hash_pytree_equals_reference_digest():
     assert t_bc.hash_pytree(rev) == want
     assert t_bc.hash_pytree({"a": torch.ones(2)}) != t_bc.hash_pytree(
         {"a": torch.ones(2) + 1e-6})
+
+
+def _rewrite_consistently(chain, forged_payload):
+    """Forge block 0's first transaction and recompute every hash after it,
+    so the chain's own hash links still hold."""
+    blk = chain.blocks[0]
+    forged = dataclasses.replace(blk.transactions[0],
+                                 payload_hash=forged_payload)
+    blk = dataclasses.replace(blk, transactions=(forged,))
+    chain.blocks[0] = dataclasses.replace(blk, hash=blk.compute_hash())
+    for i in range(1, len(chain.blocks)):
+        b = dataclasses.replace(chain.blocks[i],
+                                prev_hash=chain.blocks[i - 1].hash)
+        chain.blocks[i] = dataclasses.replace(b, hash=b.compute_hash())
+
+
+@pytest.mark.parametrize("n_nodes,n_groups", [(5, 2), (4, 2), (7, 3), (3, 1)])
+def test_two_tier_chain_matches_reference(n_nodes, n_groups):
+    """Committees, verdicts, stakes and anchor hashes equal to the
+    reference's over three rounds with poisoned and absent submitters; a
+    consistently rewritten tier-1 block breaks the cross-tier checkpoint in
+    both."""
+    data = [float(5 - i % 5) for i in range(n_nodes)]
+    kw = dict(n_groups=n_groups, reward=1.5, tolerance=0.5)
+    jc, tc = j_bc.TwoTierChain(n_nodes, data, **kw), \
+        t_bc.TwoTierChain(n_nodes, data, **kw)
+    assert tc.groups == jc.groups and tc.members == jc.members
+    rs = np.random.RandomState(n_nodes)
+    for r in range(3):
+        for s in range(n_nodes):
+            if rs.rand() < 0.2:
+                continue
+            loss = float(rs.choice([0.2, 0.3, 0.45, 6.0]))
+            p = _params_np(float(r * 10 + s))
+            meta = dict(n_clients=4, n_suspect=int(rs.randint(0, 4)))
+            jc.submit_model(s, {k: jnp.asarray(v) for k, v in p.items()}, r,
+                            loss, **meta)
+            tc.submit_model(s, {k: torch.as_tensor(v) for k, v in p.items()},
+                            r, loss, **meta)
+        assert tc.verify_round() == jc.verify_round()
+        assert tc.stakes == jc.stakes
+        assert tc.produce_round().hash == jc.produce_round().hash
+    assert tc.validate() and jc.validate()
+    for c in (jc, tc):
+        victim = next(ch for ch in c.tier1 if ch.blocks[0].transactions)
+        _rewrite_consistently(victim, "e" * 64)
+        assert victim.validate_chain()  # its own links hold ...
+        assert not c.validate()         # ... the tier-2 checkpoint does not

@@ -75,11 +75,31 @@ def test_rates_and_round_time_match(n, m):
 
 
 def test_consensus_workload_raises():
-    x = _inputs(10, 3, 0)
-    _, T, _, (tup, tdown) = _rates(x, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        t_lat.round_time(t_lat.LatencyParams(), T["assoc"], T["b"], T["data"],
-                         T["freqs"], tup, tdown, consensus=object())
+    """The PBFT block term: ``round_time(consensus=...)``,
+    ``round_time_per_bs``, ``total_time`` and ``consensus_term`` with a
+    ``ConsensusConfig`` match the reference (the name is kept from when the
+    term raised)."""
+    from repro.core.consensus import ConsensusConfig as JCons
+    from repro_torch.core.consensus import ConsensusConfig as TCons
+
+    x = _inputs(30, 5, 0)
+    J, T, (jup, jdown), (tup, tdown) = _rates(x, 5)
+    jp, tp = j_lat.LatencyParams(), t_lat.LatencyParams()
+    args_j = (J["assoc"], J["b"], J["data"], J["freqs"], jup, jdown)
+    args_t = (T["assoc"], T["b"], T["data"], T["freqs"], tup, tdown)
+    for kw in (dict(quorum_f=0), dict(quorum_f=1, byzantine_frac=0.2),
+               dict(quorum_f=2, byzantine_frac=0.5, n_groups=2,
+                    block_size_bits=2e6)):
+        jc, tc = JCons(**kw), TCons(**kw)
+        for name in ("round_time", "round_time_per_bs", "total_time"):
+            want = np.asarray(getattr(j_lat, name)(jp, *args_j, consensus=jc))
+            got = getattr(t_lat, name)(tp, *args_t, consensus=tc).numpy()
+            np.testing.assert_allclose(got, want, rtol=RTOL,
+                                       err_msg=f"{name} {kw}")
+        np.testing.assert_allclose(
+            t_lat.consensus_term(tp, tdown, T["freqs"], tc).numpy(),
+            np.asarray(j_lat.consensus_term(jp, jdown, J["freqs"], jc)),
+            rtol=RTOL, err_msg=str(kw))
 
 
 @pytest.mark.parametrize("n,m,seed", [(100, 5, 0), (37, 3, 1), (500, 8, 2)])
