@@ -16,6 +16,15 @@ sources, in parallel, and drives the port's paths:
   attackers, stragglers, outages and the PBFT block term, the segment
   kernel's launches held to the count the code makes, and a trimmed-mean
   and a Krum round on the GPU checked against the same rounds on the CPU;
+* the MARL edge-association controller: the segment kernel's gradient (a
+  gather) and grouped call held against the plain version's autograd at
+  the update's shapes; 200 full-width MADDPG training steps (100 twins, 5
+  BSs, factorized policy, hidden 256, batch 64) and 60 more with
+  migration, faults and PBFT consensus set, the segment launches held to
+  the count the code makes, the final actions feasible; a profiler trace
+  of 20 warm steps and a split of a step's host time; one update, its
+  actor gradient and one env step per config on the GPU against the CPU;
+  and one FL round driven by the trained controller's actions;
 * the LM serving path: the flash-attention kernel is held against its plain
   version on the reference tests' cases (fp32 through its CUDA-core
   variant, bf16 through its tensor-core variant), at head dims up to 256,
@@ -865,9 +874,11 @@ def phase_serve_kernel_vs_plain(torch, serve) -> None:
 
 
 def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    """Every tensor of a nest of dicts, lists and (named) tuples moved to
+    ``dev``; other leaves (host ints, None) kept."""
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.to(dev) if hasattr(x, "to") else x, tree)
 
 
 def phase_serve_gpu_vs_cpu(torch, fa, serve) -> None:
@@ -1208,6 +1219,421 @@ def phase_ssm_serve(torch, kernels, serve) -> None:
         f"{res['decode_tok_s']:.1f} tok/s")
 
 
+# ---------------------------------------------------------------------------
+# the MARL controller (paper Section IV)
+# ---------------------------------------------------------------------------
+
+MARL_OPTION_STEPS = 60
+MARL_PROFILE_STEPS = 20
+MARL_TOL = dict(rtol=1e-4, atol=1e-5)   # GPU against CPU, tf32 off
+MARL_STEP_RTOL = 1e-5                   # env_step reward and info
+
+
+def _marl_modules():
+    """The trainer's and the env's modules (the package re-exports the
+    function ``train`` under the module's name)."""
+    return (importlib.import_module("repro_torch.core.marl.train"),
+            importlib.import_module("repro_torch.core.marl.env"))
+
+
+def _marl_options(cfg):
+    """``cfg`` with migration, faults and PBFT consensus all set."""
+    from repro_torch.core.consensus import ConsensusConfig
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.migration import MigrationConfig
+
+    return dataclasses.replace(
+        cfg, migration=MigrationConfig(p_move=0.1), faults=FaultConfig(),
+        consensus=ConsensusConfig(quorum_f=1, byzantine_frac=0.2))
+
+
+def phase_segment_grad(torch, sr) -> float:
+    """The kernel backend's gradient (a gather, no launch) and the grouped
+    call on the card against the plain version's autograd, at the MARL
+    update's shapes: 320 groups (64 rows x 5 agents) of 100 twins over 5
+    BSs, 1,600 segments in 8 launches; then dropped ids and K > 1.
+    Returns the largest gradient error."""
+    lib_max = sr.KERNEL.lib().seg_reduce_max_segments()
+    if lib_max != sr.MAX_SEGMENTS:
+        raise AssertionError(f"the kernel takes {lib_max} segments, the "
+                             f"wrapper assumes {sr.MAX_SEGMENTS}")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst = 0.0
+    for tag, g, n, m, lo in (("actor-loss encode", 320, 100, 5, 0),
+                             ("target encode", 64, 100, 5, 0),
+                             ("dropped ids", 50, 300, 7, -2)):
+        vals = torch.randn((g, n), generator=gen, device="cuda")
+        ids = torch.randint(lo, m + (0 if lo == 0 else 2), (g, n),
+                            generator=gen, device="cuda", dtype=torch.int32)
+        w = torch.randn((g, m), generator=gen, device="cuda")
+        v = vals.clone().requires_grad_()
+        before = sr.KERNEL.launches
+        out = sr.segment_reduce_grouped(v, ids, m)
+        launched = sr.KERNEL.launches - before
+        (out * w).sum().backward()
+        if sr.KERNEL.launches - before != launched:
+            raise AssertionError("the segment backward launched a kernel")
+        want_launches = -(-g // (sr.MAX_SEGMENTS // m))
+        if launched != want_launches:
+            raise AssertionError(f"grouped call launched {launched}, not "
+                                 f"{want_launches}")
+        p = vals.clone().requires_grad_()
+        plain = torch.stack([sr._seg_tiled_plain(p[i][:, None], ids[i], m)
+                             [:, 0] for i in range(g)])
+        (plain * w).sum().backward()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, plain, rtol=SEG_RTOL, atol=SEG_ATOL)
+        err = float((v.grad - p.grad).abs().max())
+        torch.testing.assert_close(v.grad, p.grad, rtol=0.0, atol=0.0)
+        if lo < 0 and v.grad[(ids < 0) | (ids >= m)].any():
+            raise AssertionError("a dropped id got a gradient")
+        worst = max(worst, err)
+        log(f"[segment_grad] {tag}: G={g} N={n} M={m} ({g * m} segments, "
+            f"{launched} launches), forward max_abs_err "
+            f"{float((out.detach() - plain.detach()).abs().max()):.3e}, "
+            f"gradient max_abs_err "
+            f"{err:.3e}, out.grad_fn {type(out.grad_fn).__name__}")
+    vals = torch.randn((3000, 37), generator=gen, device="cuda")
+    ids = torch.randint(-1, 15, (3000,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    v, p = vals.clone().requires_grad_(), vals.clone().requires_grad_()
+    w = torch.randn((13, 37), generator=gen, device="cuda")
+    (sr.segment_reduce_kernel(v, ids, 13) * w).sum().backward()
+    (sr._seg_tiled_plain(p, ids, 13) * w).sum().backward()
+    torch.testing.assert_close(v.grad, p.grad, rtol=0.0, atol=0.0)
+    log(f"[segment_grad] ok: the backward gathers the plain version's "
+        f"gradient exactly (N=3000 K=37 M=13 too), no launch; "
+        f"grad_max_abs_err {worst:.3e}")
+    return worst
+
+
+def _marl_run(torch, train_mod, kernels, cfg, dcfg, tcfg, seed, tag):
+    """One ``train`` run on the card, every count set to 0 just before and
+    read just after; a CUDA event is recorded after every step."""
+    events, last = [], {}
+
+    def on_step(i, info):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        last.update(info)
+
+    _reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, trace = train_mod.train(cfg, dcfg, tcfg, seed, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k.source.stem: k.launches for k in kernels}
+    want = train_mod.marl_train_launches(cfg, dcfg, tcfg)
+    log(f"[{tag}] kernel launches: {json.dumps(launches)}; the code makes "
+        f"{want} segment launches")
+    if launches["segment_reduce"] != want:
+        raise AssertionError(f"segment kernel launched "
+                             f"{launches['segment_reduce']} times, not {want}")
+    if any(v for k, v in launches.items() if k != "segment_reduce"):
+        raise AssertionError("the MARL run launched another kernel")
+    trace = {k: v.cpu() for k, v in trace.items()}
+    for k, v in trace.items():
+        if v.shape != (tcfg.steps,) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"trace {k}: shape {tuple(v.shape)} or not "
+                                 f"finite")
+    w0 = min(tcfg.warmup + 2, tcfg.steps - 2)
+    warm = events[w0].elapsed_time(events[-1]) / (len(events) - 1 - w0)
+    log(f"[{tag}] {tcfg.steps} steps in {wall:.1f} ms: {wall / tcfg.steps:.3f}"
+        f" ms a step, {1e3 * tcfg.steps / wall:.2f} steps/s (synchronized "
+        f"around the run); warm steps {w0 + 1}-{tcfg.steps - 1}: "
+        f"{warm:.3f} ms a step ({1e3 / warm:.2f} steps/s, CUDA events); "
+        f"{launches['segment_reduce'] / tcfg.steps:.2f} segment launches a "
+        f"step")
+    return {"ts": ts, "trace": trace, "wall_ms": wall, "warm_ms": warm,
+            "launches": launches["segment_reduce"], "last_info": last}
+
+
+def phase_marl_train(torch, kernels) -> dict:
+    """The MARL controller at the paper's width: ``EnvConfig()`` (100
+    twins, 5 BSs, 8 sub-channels, episodes of 50), ``DDPGConfig()``
+    (factorized policy, hidden (256, 256), batch 64) and ``TrainConfig()``
+    (200 steps, warmup 48), seed 0; then 60 steps with migration, faults
+    and PBFT consensus all set."""
+    from repro_torch.core import association as assoc_mod
+    from repro_torch.core.marl import (DDPGConfig, EnvConfig, TrainConfig,
+                                       act, compare_with_baselines,
+                                       decode_actions)
+
+    train_mod, _ = _marl_modules()
+    t_phase = time.perf_counter()
+    cfg, dcfg, tcfg = EnvConfig(), DDPGConfig(), TrainConfig()
+    log(f"[marl] EnvConfig(): N={cfg.n_twins} M={cfg.n_bs} "
+        f"C={cfg.wl.n_subchannels} freqs {cfg.bs_freqs_ghz} GHz, episode_len "
+        f"{cfg.episode_len}; DDPGConfig(): {dcfg.policy}, hidden "
+        f"{dcfg.hidden}, batch {dcfg.batch_size}, gamma {dcfg.gamma}; "
+        f"TrainConfig(): {tcfg.steps} steps, warmup {tcfg.warmup}, replay "
+        f"{tcfg.replay_capacity}; seed 0")
+    run = _marl_run(torch, train_mod, kernels, cfg, dcfg, tcfg, 0, "marl")
+    ts, st = run["ts"], run["trace"]["system_time"]
+    log(f"[marl] system_time mean of the first 50 steps "
+        f"{float(st[:50].mean()):.4f} s, of the last 50 "
+        f"{float(st[-50:].mean()):.4f} s; critic_loss last "
+        f"{float(run['trace']['critic_loss'][-1]):.4f}, actor_loss last "
+        f"{float(run['trace']['actor_loss'][-1]):.4f}")
+    with torch.no_grad():
+        a = act(cfg, ts.agent, ts.obs, policy=dcfg.policy)
+        base = compare_with_baselines(cfg, ts.env, a)
+        assoc, b, tau = decode_actions(cfg, a)
+    checks = assoc_mod.check_constraints(cfg.lat, assoc, b, tau, cfg.n_twins,
+                                         cfg.n_bs)
+    log(f"[marl] compare_with_baselines on the final state: marl "
+        f"{float(base['marl']):.4f} s, average {float(base['average']):.4f} "
+        f"s, random {float(base['random']):.4f} s; twins a BS "
+        f"{torch.bincount(assoc.long(), minlength=cfg.n_bs).tolist()}; "
+        f"constraints {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"final decoded actions break (18b-d): {checks}")
+    ocfg = _marl_options(cfg)
+    otcfg = dataclasses.replace(tcfg, steps=MARL_OPTION_STEPS)
+    log(f"[marl_options] {ocfg.migration}; {ocfg.faults}; {ocfg.consensus}; "
+        f"{otcfg.steps} steps")
+    opt = _marl_run(torch, train_mod, kernels, ocfg, dcfg, otcfg, 1,
+                    "marl_options")
+    info = {k: float(v) for k, v in opt["last_info"].items()
+            if getattr(v, "ndim", 1) == 0}
+    log(f"[marl_options] last step: {json.dumps(info)}")
+    for k in ("migration_rate", "straggler_frac", "outage_frac",
+              "consensus_time", "accept_frac"):
+        if not math.isfinite(info[k]):
+            raise AssertionError(f"{k} is not finite")
+    log(f"[marl] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"ts": ts, "cfg": cfg, "dcfg": dcfg, "launches": run["launches"],
+            "options_launches": opt["launches"], "ms_step":
+            run["wall_ms"] / tcfg.steps, "warm_ms": run["warm_ms"]}
+
+
+def phase_marl_profile(torch, kernels) -> None:
+    """Where a warm training step's time goes, at full width: a
+    torch.profiler trace of the device over 20 warm steps (device busy and
+    idle share, device events a step, the largest kernels; the host is not
+    traced, which would slow it many times over), then the host time of
+    each part of a step (each part synchronized) over 10 warm steps."""
+    from repro_torch.core.marl import DDPGConfig, EnvConfig, TrainConfig
+
+    train_mod, env_mod = _marl_modules()
+    cfg, dcfg = EnvConfig(), DDPGConfig()
+    w0 = TrainConfig().warmup + 4
+    tcfg = TrainConfig(steps=w0 + MARL_PROFILE_STEPS + 1)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    clock = {}
+
+    def on_step(i, info):
+        if i in (w0, w0 + MARL_PROFILE_STEPS):
+            torch.cuda.synchronize()
+            clock[i] = time.perf_counter()
+            (prof.start if i == w0 else prof.stop)()
+
+    train_mod.train(cfg, dcfg, tcfg, 2, on_step=on_step)
+    wall = (clock[w0 + MARL_PROFILE_STEPS] - clock[w0]) * 1e3
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        log("[marl_profile] device time: not measured (no device events)")
+    else:
+        busy = importlib.import_module(
+            "repro_torch.launch.profile_round")._union_us(
+                (e.time_range.start, e.time_range.end) for e in dev) / 1e3
+        log(f"[marl_profile] {MARL_PROFILE_STEPS} warm steps (profiler on): "
+            f"wall {wall:.1f} ms ({wall / MARL_PROFILE_STEPS:.3f} ms a step), "
+            f"device busy {busy:.2f} ms, idle share "
+            f"{100 * (1 - busy / wall):.1f}%, "
+            f"{len(dev) / MARL_PROFILE_STEPS:.1f} device events a step")
+        by_name = {}
+        for e in dev:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                               / 1e3, n + 1)
+        for name, (ms, n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
+            log(f"[marl_profile]   {ms / MARL_PROFILE_STEPS:8.4f} ms a step "
+                f"{n / MARL_PROFILE_STEPS:6.1f}x  {name[:90]}")
+    # host split: each part of a step synchronized before and after
+    parts = {}
+    active = [False]
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            if not active[0]:
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    targets = [(train_mod, "sample_train_draws"), (train_mod, "act"),
+               (env_mod, "env_step"), (env_mod, "observe"),
+               (train_mod.spaces, "encode_action"),
+               (train_mod, "replay_add"), (train_mod, "maddpg_update")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    steps = 10
+    ticks = []
+
+    def tick(i, info):
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+        active[0] = i + 1 > w0
+
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, timed(name, fn))
+        train_mod.train(cfg, dcfg, TrainConfig(steps=w0 + 1 + steps), 3,
+                        on_step=tick)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    step_ms = (ticks[-1] - ticks[w0]) * 1e3 / steps
+    split = {k: v * 1e3 / steps for k, v in parts.items()}
+    log(f"[marl_profile] host split over {steps} warm steps (each part "
+        f"synchronized): step {step_ms:.3f} ms; " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(split.items(),
+                                             key=lambda kv: -kv[1]))
+        + f"; rest {step_ms - sum(split.values()):.3f} ms")
+
+
+def phase_marl_gpu_vs_cpu(torch, sr, marl) -> float:
+    """One bridged state on both devices: the trained agent and 64 rows of
+    its replay. One ``maddpg_update`` on the card and on the CPU (new
+    parameters and both losses within ``MARL_TOL``); the actor loss's
+    gradient through the kernel's backward against the CPU plain version's;
+    then one ``env_step`` per config (plain, migration, faults, consensus)
+    from one state and the same draws: the same association, reward and
+    info within ``MARL_STEP_RTOL``. Returns the gradient's largest
+    difference."""
+    from repro_torch.core.marl import ddpg, replay
+    from repro_torch.core.marl.spaces import Action
+    from repro_torch.utils.tree import tree_leaves
+
+    _, env_mod = _marl_modules()
+    ts, cfg, dcfg = marl["ts"], marl["cfg"], marl["dcfg"]
+    B = dcfg.batch_size
+    idx = torch.arange(B, device="cuda") * (ts.buf.size // B)
+    gpu = {"agent": ts.agent, "batch": replay.replay_sample(ts.buf, idx, B),
+           "tf": ts.obs.twin_feats}
+    cpu = _to(gpu, "cpu")
+    (new_g, m_g), (new_c, m_c) = (
+        ddpg.maddpg_update(cfg, dcfg, s["agent"], s["batch"], s["tf"])
+        for s in (gpu, cpu))
+    for k in m_c:
+        torch.testing.assert_close(m_g[k].cpu(), m_c[k], **MARL_TOL)
+    diff = 0.0
+    for a, b in zip(tree_leaves(new_g), tree_leaves(new_c)):
+        torch.testing.assert_close(a.cpu(), b, **MARL_TOL)
+        diff = max(diff, float((a.cpu() - b).abs().max()))
+    log(f"[marl_gpu_vs_cpu] maddpg_update: critic_loss "
+        f"{float(m_g['critic_loss']):.6f} / {float(m_c['critic_loss']):.6f}, "
+        f"actor_loss "
+        f"{float(m_g['actor_loss']):.6f} / {float(m_c['actor_loss']):.6f} "
+        f"(GPU / CPU); {len(tree_leaves(new_c))} leaves, max abs difference "
+        f"{diff:.3e} (rtol {MARL_TOL['rtol']}, atol {MARL_TOL['atol']})")
+    grads = []
+    for s in (gpu, cpu):
+        before = sr.KERNEL.launches
+        loss, g = ddpg.actor_loss_and_grads(cfg, dcfg, s["agent"].actor,
+                                            s["agent"].critic, s["batch"][0],
+                                            s["tf"])
+        grads.append((loss, g, sr.KERNEL.launches - before))
+    (loss_g, g_g, n_g), (loss_c, g_c, n_c) = grads
+    torch.testing.assert_close(loss_g.cpu(), loss_c, **MARL_TOL)
+    gdiff = 0.0
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a.cpu(), b, **MARL_TOL)
+        gdiff = max(gdiff, float((a.cpu() - b).abs().max()))
+    if n_g <= 0 or n_c != 0:
+        raise AssertionError(f"actor loss launches GPU {n_g}, CPU {n_c}")
+    log(f"[marl_gpu_vs_cpu] actor-loss gradient through the kernel's "
+        f"backward ({n_g} forward launches) against the CPU plain "
+        f"version's: max abs difference {gdiff:.3e}")
+    for name, c in (("plain", cfg), ("migration", dataclasses.replace(
+            cfg, migration=_marl_options(cfg).migration)),
+                    ("faults", dataclasses.replace(
+                        cfg, faults=_marl_options(cfg).faults)),
+                    ("consensus", dataclasses.replace(
+                        cfg, consensus=_marl_options(cfg).consensus))):
+        gen = torch.Generator().manual_seed(3)
+        st = env_mod.env_reset(c, env_mod.sample_reset_draws(gen, c))
+        draws = env_mod.sample_step_draws(gen, c)
+        a = Action(torch.rand((c.n_bs, c.n_twins), generator=gen) * 2 - 1,
+                   torch.rand((c.n_bs,), generator=gen) * 2 - 1,
+                   torch.rand((c.n_bs, c.wl.n_subchannels), generator=gen)
+                   * 2 - 1)
+        nc, rc, ic = env_mod.env_step(c, st, a, draws)
+        ng, rg, ig = _to(env_mod.env_step(
+            c, *_to((st, a, draws), "cuda")), "cpu")
+        if not torch.equal(ig["assoc"], ic["assoc"]):
+            raise AssertionError(f"env_step ({name}): GPU and CPU "
+                                 f"associations differ")
+        worst = 0.0
+        for k, want in [("reward", rc)] + [(k, v) for k, v in ic.items()
+                                            if k != "assoc"]:
+            got = rg if k == "reward" else ig[k]
+            torch.testing.assert_close(got, want, rtol=MARL_STEP_RTOL,
+                                       atol=0.0)
+            rel = float(((got - want).abs() / want.abs().clamp(min=1e-30))
+                        .max())
+            worst = max(worst, rel)
+        if not torch.equal(ng.assoc, nc.assoc):
+            raise AssertionError(f"env_step ({name}): next associations "
+                                 f"differ")
+        log(f"[marl_gpu_vs_cpu] env_step {name}: same assoc, reward and "
+            f"{len(ic) - 1} info values within rtol {MARL_STEP_RTOL} (max "
+            f"relative difference {worst:.2e}); system_time "
+            f"{float(ic['system_time']):.6f} s")
+    return gdiff
+
+
+def phase_marl_fl_hook(torch, sr, fr, data, kernels, agent) -> dict:
+    """``DTWNSystem(FLConfig(...)).marl_actions`` with the trained agent,
+    then one full-width round with those actions, counts set to 0 just
+    before and read just after."""
+    import numpy as np
+
+    from repro_torch.core import association as assoc_mod
+    from repro_torch.fl import (EXAMPLE_PARTICIPATING_USERS, DTWNSystem,
+                                FLConfig)
+
+    system = DTWNSystem(FLConfig(use_kernel_aggregation=True), data, seed=0)
+    env_cfg = system.marl_env_config()
+    _reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assoc, b, tau = system.marl_actions(agent)
+    info = system.run_round(assoc, b, tau,
+                            participating_users=EXAMPLE_PARTICIPATING_USERS)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {"segment_reduce": sr.KERNEL.launches,
+                "fedavg_reduce": fr.KERNEL.launches}
+    checks = assoc_mod.check_constraints(system.lat, assoc, b, tau,
+                                         env_cfg.n_twins, env_cfg.n_bs)
+    per_bs = np.bincount(assoc, minlength=env_cfg.n_bs).tolist()
+    log(f"[marl_fl_hook] marl_env_config(): N={env_cfg.n_twins} "
+        f"M={env_cfg.n_bs} data {env_cfg.data_min}-{env_cfg.data_max}; "
+        f"actions: twins a BS {per_bs}, "
+        f"b {float(b.min()):.3f}-{float(b.max()):.3f}; constraints {checks}")
+    log(f"[marl_fl_hook] round {info['round']}: wall {wall:.1f} ms, loss "
+        f"{info['loss']:.6f}, round_time_s {info['round_time_s']:.6f}, "
+        f"verified {info['n_verified']}/{info['n_submitted']}; kernel "
+        f"launches {json.dumps(launches)}")
+    if not all(checks.values()):
+        raise AssertionError(f"hook actions break (18b-d): {checks}")
+    if not (math.isfinite(info["loss"]) and info["chain_valid"]):
+        raise AssertionError("hook round: loss not finite or chain invalid")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"hook round launched {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1232,6 +1658,7 @@ def main() -> int:
     device = phase_device(torch)
     phase_build(kernels, build)
     seg_err = phase_segment_check(torch, sr)
+    grad_err = phase_segment_grad(torch, sr)
     fed_err = phase_fedavg_check(torch, fr)
     phase_flash_check(torch, fa)
     main_call = flash_main(serve)
@@ -1249,6 +1676,10 @@ def main() -> int:
     phase_gpu_vs_cpu(torch, data)
     robust = phase_robust_round(torch, sr, fr, data, kernels)
     phase_robust_gpu_vs_cpu(torch, data)
+    marl = phase_marl_train(torch, kernels)
+    phase_marl_profile(torch, kernels)
+    marl_grad_gap = phase_marl_gpu_vs_cpu(torch, sr, marl)
+    hook = phase_marl_fl_hook(torch, sr, fr, data, kernels, marl["ts"].agent)
     del data
     served = phase_serve(torch, kernels, fa, serve)
     phase_serve_kernel_vs_plain(torch, serve)
@@ -1264,7 +1695,12 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:212",
          "launches": launches["segment_reduce"],
-         "robust_launches": robust["segment_reduce"], "max_abs_err": seg_err,
+         "robust_launches": robust["segment_reduce"],
+         "marl_launches": marl["launches"],
+         "marl_options_launches": marl["options_launches"],
+         "marl_hook_launches": hook["segment_reduce"],
+         "max_abs_err": seg_err, "grad_max_abs_err": grad_err,
+         "marl_actor_grad_gpu_vs_cpu": marl_grad_gap,
          "ms": fc1["ms"], "plain_ms": fc1["plain_ms"],
          "bound_ms": fc1["bound_ms"], "bound_by": fc1["bound_by"],
          "library_ms": fc1["library_ms"], "call_ms": fc1["call_ms"],
@@ -1273,7 +1709,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
          "replaces": "src/repro/kernels/fedavg_reduce.py:19",
          "launches": launches["fedavg_reduce"],
-         "robust_launches": robust["fedavg_reduce"], "max_abs_err": fed_err,
+         "robust_launches": robust["fedavg_reduce"],
+         "marl_hook_launches": hook["fedavg_reduce"], "max_abs_err": fed_err,
          "ms": fed["ms"], "plain_ms": fed["plain_ms"],
          "bound_ms": fed["bound_ms"], "bound_by": fed["bound_by"],
          "library_ms": fed["library_ms"], "call_ms": fed["call_ms"],

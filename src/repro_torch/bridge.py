@@ -5,6 +5,8 @@ where a reference system starts takes that system's state as arrays:
 ``{k: np.asarray(v)}`` of its CNN params, and its BS distances and up/down
 channel gains; an LM takes the reference's parameter tree, leaf by leaf as
 numpy. Both models keep the reference's layout, so nothing is transposed.
+The MARL controller's state comes over the same way: the reference's
+``MADDPGState`` and ``EnvState`` with their leaves as numpy arrays.
 """
 from __future__ import annotations
 
@@ -40,3 +42,50 @@ def lm_params_from_numpy(tree, device, dtype=None):
     a = np.asarray(tree)
     want = dtype or (torch.float32 if a.dtype == np.float32 else torch.bfloat16)
     return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=want)
+
+
+def _tensors(tree, device):
+    """A nest of dicts, lists and tuples of arrays -> the same nest of fp32
+    (or integer) tensors on ``device``; ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tensors(v, device) for v in tree]
+    a = np.asarray(tree)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    return torch.tensor(a, device=device)
+
+
+def maddpg_state_from_numpy(tree, device):
+    """A reference ``MADDPGState`` whose leaves are numpy arrays (e.g.
+    ``jax.tree_util.tree_map(np.asarray, state)``) -> the port's
+    ``MADDPGState`` on ``device``: actor, critic, both targets and both
+    momentum trees, for either policy. Parameter dicts keep their keys and
+    the MLP layers their order."""
+    from repro_torch.core.marl.ddpg import MADDPGState
+
+    return MADDPGState(*(_tensors(getattr(tree, f), device)
+                         for f in MADDPGState._fields))
+
+
+def env_state_from_numpy(tree, device):
+    """A reference ``EnvState`` whose leaves are numpy arrays -> the port's
+    ``EnvState`` on ``device``: the association as int32, the step counter
+    as a host int, and the chain view (a ``ChainState``) when present."""
+    from repro_torch.core.consensus import ChainState
+    from repro_torch.core.marl.env import EnvState
+
+    chain = None
+    if getattr(tree, "chain", None) is not None:
+        chain = ChainState(*(_tensors(getattr(tree.chain, f), device)
+                             for f in ChainState._fields))
+    return EnvState(
+        freqs=_tensors(tree.freqs, device),
+        data_sizes=_tensors(tree.data_sizes, device),
+        h_up=_tensors(tree.h_up, device), h_down=_tensors(tree.h_down, device),
+        dist=_tensors(tree.dist, device),
+        assoc=_tensors(tree.assoc, device).to(torch.int32),
+        t=int(np.asarray(tree.t)), chain=chain)

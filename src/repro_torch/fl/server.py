@@ -9,8 +9,9 @@ through the FedAvg kernel) global model -> latency bill (Eqs. 12-17, with
 stragglers and outages under ``faults`` and the PBFT block term under
 ``consensus``).
 
-Scenario rows raise ``NotImplementedError`` (ROADMAP A8); the MARL round hook
-``marl_actions`` comes with A7.
+Scenario rows raise ``NotImplementedError`` (ROADMAP A8). ``marl_actions`` is
+the MARL controller's round hook: a trained MADDPG agent's decoded
+association, batch fractions and bandwidth for the system's current state.
 """
 from __future__ import annotations
 
@@ -175,6 +176,42 @@ class DTWNSystem:
     def test_accuracy(self, n: int = 1000) -> float:
         with torch.no_grad():
             return float(cnn.accuracy(self.params, self._eval_batch(n)))
+
+    # ------------------------------------------------------------------
+    def marl_env_config(self):
+        """EnvConfig mirroring this system: N twins, M BSs, the frequency
+        table, and the observation's data range set from the actual shard
+        sizes (twin features then stay in the range a trained policy saw)."""
+        from repro_torch.core.marl.env import EnvConfig
+
+        return EnvConfig(n_twins=self.cfg.n_users, n_bs=self.cfg.n_bs,
+                         bs_freqs_ghz=tuple(self.cfg.bs_freqs_ghz),
+                         wireless=self.wireless,
+                         data_min=float(self.data_sizes.min()),
+                         data_max=float(self.data_sizes.max()))
+
+    def marl_actions(self, agent, *, policy: str = "factorized",
+                     env_cfg=None):
+        """FL round hook: the controller's actions for the system's CURRENT
+        state (channels, distances, frequencies, twin data sizes, a
+        round-robin association in the observation), from the MADDPG
+        ``agent`` (on this system's device) under the named policy, decoded
+        onto the (18) feasible set. Returns host numpy ``(assoc (N,), b
+        (N,), tau (M, C))`` for :meth:`run_round`."""
+        from repro_torch.core.marl import env as env_mod
+        from repro_torch.core.marl.ddpg import act
+
+        cfg = env_cfg if env_cfg is not None else self.marl_env_config()
+        st = env_mod.EnvState(
+            freqs=self._freqs_dev, data_sizes=self._sizes_dev,
+            h_up=self.h_up, h_down=self.h_down, dist=self.dist,
+            assoc=assoc_mod.average_association(
+                cfg.n_twins, cfg.n_bs, self.device).to(torch.int32),
+            t=self._round)
+        with torch.no_grad():
+            a = act(cfg, agent, env_mod.observe(cfg, st), policy=policy)
+            assoc, b, tau = env_mod.decode_actions(cfg, a)
+        return assoc.cpu().numpy(), b.cpu().numpy(), tau.cpu().numpy()
 
     # ------------------------------------------------------------------
     def run_round(self, assoc, b: Optional[np.ndarray] = None,

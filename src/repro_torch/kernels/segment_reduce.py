@@ -32,6 +32,14 @@ XLA-CPU and are not a statement about the card.
 Conventions: ``assoc`` ids outside ``[0, M)`` are dropped by every backend;
 ``values`` is ``(N,)`` or ``(N, ...)`` and trailing dims are flattened to a
 lane axis K and restored on return; sums are fp32 whatever the input dtype.
+
+Every backend is differentiable in ``values``. The ``"kernel"`` backend is a
+``torch.autograd.Function`` whose backward is a plain gather,
+``grad_values[j] = grad_out[assoc[j]]`` (zero for dropped ids): the
+reference has no backward kernel either, XLA differentiates around its
+Pallas call. :func:`segment_reduce_grouped` reduces G independent
+(values, assoc) rows at once, for the batched encodes of the MARL trainer
+that the reference ``vmap``s.
 """
 from __future__ import annotations
 
@@ -175,14 +183,10 @@ def _seg_tiled_plain(values, assoc, num_segments: int, *, block: int = _TILE):
     return acc
 
 
-def segment_reduce_kernel(values, assoc, num_segments: int):
-    """The ``"kernel"`` backend on ``values`` (N, K) fp32, ``assoc`` (N,)
-    int32 -> (M, K) fp32.
-
-    A CUDA tensor launches the hand kernel (``csrc/segment_reduce.cu``) on
-    the current stream; a CPU tensor runs :func:`_seg_tiled_plain`. Any
-    other device, dtype or layout raises: there is no fallback.
-    """
+def _seg_kernel_forward(values, assoc, num_segments: int):
+    """The forward of the ``"kernel"`` backend: a CUDA tensor launches the
+    hand kernel on the current stream, a CPU tensor runs
+    :func:`_seg_tiled_plain`. Any other device, dtype or layout raises."""
     if values.device.type == "cpu" and assoc.device.type == "cpu":
         return _seg_tiled_plain(values, assoc, num_segments)
     if values.device.type != "cuda" or assoc.device != values.device:
@@ -221,6 +225,41 @@ def segment_reduce_kernel(values, assoc, num_segments: int):
     return out
 
 
+class _SegmentReduceKernel(torch.autograd.Function):
+    """The ``"kernel"`` backend with its gradient. Forward: the hand kernel
+    (or its plain version on the CPU). Backward: a plain gather of the
+    output gradient at each twin's segment, masked to zero for ids outside
+    ``[0, M)``; it launches no kernel, as the reference's Pallas call has no
+    backward kernel."""
+
+    @staticmethod
+    def forward(ctx, values, assoc, num_segments):
+        ctx.save_for_backward(assoc)
+        ctx.num_segments = num_segments
+        return _seg_kernel_forward(values, assoc, num_segments)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (assoc,) = ctx.saved_tensors
+        m = ctx.num_segments
+        valid = (assoc >= 0) & (assoc < m)
+        rows = torch.index_select(grad_out, 0,
+                                  torch.clamp(assoc, 0, m - 1).long())
+        return torch.where(valid[:, None], rows, 0.0), None, None
+
+
+def segment_reduce_kernel(values, assoc, num_segments: int):
+    """The ``"kernel"`` backend on ``values`` (N, K) fp32, ``assoc`` (N,)
+    int32 -> (M, K) fp32, differentiable in ``values``.
+
+    A CUDA tensor launches the hand kernel (``csrc/segment_reduce.cu``) on
+    the current stream; a CPU tensor runs :func:`_seg_tiled_plain`. Any
+    other device, dtype or layout raises: there is no fallback. The
+    gradient is the gather of :class:`_SegmentReduceKernel`.
+    """
+    return _SegmentReduceKernel.apply(values, assoc, num_segments)
+
+
 _IMPLS = {
     "kernel": segment_reduce_kernel,
     "segment_sum": _seg_segment_sum,
@@ -232,6 +271,14 @@ _IMPLS = {
 # ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if backend == "sharded" or (backend == "auto"
+                                and _active_twin_axis() is not None):
+        _refuse_sharded("segment-reduce backend")
 
 
 def _check_shapes(values, assoc):
@@ -258,11 +305,7 @@ def segment_reduce(values, assoc, num_segments: int, *,
     Returns:
         (M,) or (M, ...) fp32 sums on ``values``' device.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if backend == "sharded" or (backend == "auto"
-                                and _active_twin_axis() is not None):
-        _refuse_sharded("segment-reduce backend")
+    _check_backend(backend)
     values = torch.as_tensor(values)
     assoc = torch.as_tensor(assoc, device=values.device)
     _check_shapes(values, assoc)
@@ -278,6 +321,69 @@ def segment_reduce(values, assoc, num_segments: int, *,
     out = _IMPLS[backend](flat, assoc.to(torch.int32).contiguous(),
                           num_segments)
     return out.reshape((num_segments,) + tail)
+
+
+# The kernel keeps kThreads * M fp32 accumulators in shared memory, so it
+# takes at most (227 KiB - 4 KiB of staged ids) / (256 * 4 B) segments
+# (``seg_reduce_max_segments`` in csrc/segment_reduce.cu); chip_smoke.py
+# holds this copy to the library's. The grouped call packs at most
+# MAX_SEGMENTS // M groups into one launch.
+MAX_SEGMENTS = (227 * 1024 - 1024 * 4) // (256 * 4)
+
+
+def segment_reduce_grouped(values, assoc, num_segments: int, *,
+                           backend: str = "auto") -> torch.Tensor:
+    """G independent segment sums at once: ``values`` (G, N) or (G, N, ...)
+    and ``assoc`` (G, N) -> (G, M) or (G, M, ...) fp32, with
+    ``out[g] = segment_reduce(values[g], assoc[g], M)``.
+
+    Group g's ids are offset by ``g * M`` (dropped ids stay dropped), so
+    one reduction over G*N twins into G*M segments computes every group.
+    The ``"kernel"`` backend launches once per run of at most
+    ``MAX_SEGMENTS // M`` contiguous groups; the other backends take all G
+    in one call. Differentiable in ``values`` like :func:`segment_reduce`.
+    """
+    _check_backend(backend)
+    values = torch.as_tensor(values)
+    assoc = torch.as_tensor(assoc, device=values.device)
+    if assoc.ndim != 2 or tuple(values.shape[:2]) != tuple(assoc.shape):
+        raise ValueError(f"grouped segment reduce takes values (G, N, ...) "
+                         f"and assoc (G, N), got {tuple(values.shape)} and "
+                         f"{tuple(assoc.shape)}")
+    g, n = assoc.shape
+    tail = tuple(values.shape[2:])
+    m = num_segments
+    if g == 0 or n == 0:
+        return torch.zeros((g, m) + tail, dtype=torch.float32,
+                           device=values.device)
+    if backend == "auto":
+        backend = resolve_backend(g * n, g * m, platform=values.device.type)
+    per_call = max(MAX_SEGMENTS // m, 1) if backend == "kernel" else g
+    flat = values.to(torch.float32).reshape(g, n, -1)
+    assoc = assoc.to(torch.int32)
+    valid = (assoc >= 0) & (assoc < m)
+    local = torch.arange(g, dtype=torch.int32, device=values.device) % per_call
+    ids = torch.where(valid, assoc + local[:, None] * m, -1)
+    outs = []
+    for g0 in range(0, g, per_call):
+        g1 = min(g0 + per_call, g)
+        out = _IMPLS[backend](flat[g0:g1].reshape((g1 - g0) * n, -1)
+                              .contiguous(),
+                              ids[g0:g1].reshape(-1).contiguous(),
+                              (g1 - g0) * m)
+        outs.append(out.reshape(g1 - g0, m, -1))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.reshape((g, m) + tail)
+
+
+def segment_count_grouped(assoc, num_segments: int, *,
+                          backend: str = "auto") -> torch.Tensor:
+    """Per-group occupancy histograms, (G, M) fp32, through
+    :func:`segment_reduce_grouped`."""
+    assoc = torch.as_tensor(assoc)
+    return segment_reduce_grouped(
+        torch.ones(assoc.shape, dtype=torch.float32, device=assoc.device),
+        assoc, num_segments, backend=backend)
 
 
 def segment_count(assoc, num_segments: int, *, backend: str = "auto"

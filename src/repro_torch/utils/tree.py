@@ -2,7 +2,9 @@
 
 A model is a plain ``dict[str, Tensor]``. Its leaves are always visited in
 sorted key order, which is the order ``jax.tree_util`` gives a dict, so flat
-vectors and hashes line up with the reference's.
+vectors and hashes line up with the reference's. :func:`tree_leaves` and
+:func:`tree_map` walk the nested dicts, lists and NamedTuples of the MARL
+controller's parameters in the same order.
 """
 from __future__ import annotations
 
@@ -45,3 +47,44 @@ def tree_unflatten_concat(flat: torch.Tensor, spec) -> Params:
         out[k] = flat[ofs: ofs + n].reshape(shp).to(dt)
         ofs += n
     return out
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves of a nest of dicts, lists, tuples and NamedTuples,
+    in ``jax.tree_util``'s order: dict keys sorted, sequences in order.
+    ``None`` is an empty subtree."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf to ``tree`` and the same-structured
+    ``rest``, in :func:`tree_leaves`' order; the structure (dict keys, list,
+    tuple or NamedTuple type) is kept and ``None`` subtrees stay ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        items = [tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        if _is_namedtuple(tree):
+            return type(tree)(*items)
+        return type(tree)(items)
+    return fn(tree, *rest)
+
+
+def tree_unflatten_like(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves``, given in
+    :func:`tree_leaves`' order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)

@@ -58,6 +58,56 @@ def test_segment_kernel_refuses_what_it_does_not_take(cuda):
     assert out.shape == (2, 3) and not out.any()
 
 
+@pytest.mark.parametrize("n,k,m", [(100, 1, 5), (6400, 1, 220),
+                                   (3000, 37, 13)])
+def test_segment_kernel_gradient_matches_plain(cuda, n, k, m):
+    """The kernel backend's autograd output on a CUDA tensor: a grad_fn, the
+    plain version's gradient, zero for dropped ids."""
+    gen = torch.Generator().manual_seed(n + m)
+    vals = torch.randn((n, k), generator=gen).to(cuda)
+    ids = torch.randint(-1, m + 2, (n,), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    w = torch.randn((m, k), generator=gen).to(cuda)
+    v = vals.clone().requires_grad_()
+    before = sr.KERNEL.launches
+    out = sr.segment_reduce(v, ids, m)
+    assert sr.KERNEL.launches == before + 1 and out.grad_fn is not None
+    (out * w).sum().backward()
+    assert sr.KERNEL.launches == before + 1  # the backward is a gather
+    p = vals.clone().requires_grad_()
+    (sr._seg_tiled_plain(p, ids, m) * w).sum().backward()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(v.grad, p.grad, rtol=1e-6, atol=1e-6)
+    dropped = (ids < 0) | (ids >= m)
+    assert dropped.any() and not v.grad[dropped].any()
+
+
+@pytest.mark.parametrize("g,n,m", [(64, 100, 5), (320, 100, 5),
+                                   (7, 50, 223)])
+def test_segment_kernel_grouped_matches_plain(cuda, g, n, m):
+    """More than 223 segments in all: one launch per run of 223 // M
+    groups, each against the plain version per group."""
+    gen = torch.Generator().manual_seed(g + m)
+    vals = torch.randn((g, n), generator=gen).to(cuda)
+    ids = torch.randint(-1, m + 1, (g, n), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    assert sr.KERNEL.lib().seg_reduce_max_segments() == sr.MAX_SEGMENTS
+    v = vals.clone().requires_grad_()
+    before = sr.KERNEL.launches
+    out = sr.segment_reduce_grouped(v, ids, m)
+    assert sr.KERNEL.launches - before == -(-g // (sr.MAX_SEGMENTS // m))
+    w = torch.randn(out.shape, generator=torch.Generator(device="cuda")
+                    .manual_seed(0), device="cuda")
+    (out * w).sum().backward()
+    p = vals.clone().requires_grad_()
+    want = torch.stack([sr._seg_tiled_plain(p[i][:, None], ids[i], m)[:, 0]
+                        for i in range(g)])
+    (want * w).sum().backward()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(v.grad, p.grad, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("c,n,main_path", [(5, 2_156_490, True),
                                            (5, 2_156_490, False),
                                            (3, 65_537, False),

@@ -66,6 +66,21 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         default_device()
     assert default_device("cpu") == torch.device("cpu")
+    # the MARL controller: the trainer and the FL round hook
+    from repro_torch.core.marl import (DDPGConfig, EnvConfig, TrainConfig,
+                                       maddpg_init, train, train_host_loop)
+
+    cfgs = (EnvConfig(n_twins=4, n_bs=2, bs_freqs_ghz=(2.6, 1.8)),
+            DDPGConfig(batch_size=2, hidden=(8, 8)),
+            TrainConfig(steps=2, warmup=1, replay_capacity=4))
+    for run in (train, train_host_loop):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(*cfgs)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(*cfgs, 0, device="cuda")
+    agent = maddpg_init(cfgs[0], cfgs[1], torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DTWNSystem(FLConfig(n_users=4, n_bs=2), data).marl_actions(agent)
 
 
 def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
