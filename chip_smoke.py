@@ -25,6 +25,19 @@ sources, in parallel, and drives the port's paths:
   of 20 warm steps and a split of a step's host time; one update, its
   actor gradient and one env step per config on the GPU against the CPU;
   and one FL round driven by the trained controller's actions;
+* the scenario runners at the paper's width (100 twins, 5 BSs, 256
+  scenarios): the baselines, 10 faulted, migrating and PBFT rounds, and the
+  trained controller's rollouts (32 scenarios), the segment launches held to
+  the count the code makes, and 8 scenarios of each on the GPU against the
+  CPU from the same draws;
+* the always-on service with streamed FL at the paper's width (capacity
+  100, the CNN, migration, faults, PBFT and churn): 6 overlapped rounds
+  with no host synchronisation (the sync debug mode set to raise), equal
+  bit for bit to 6 blocking rounds, device memory flat from the second
+  round on, the segment launches held to the count the code makes, a
+  round's profile, streaming against the batch runners per axis, one
+  round on the GPU against the CPU, and a policy-driven stream; then the
+  serving CLI with the tiny model at capacity 10,000;
 * the LM serving path: the flash-attention kernel is held against its plain
   version on the reference tests' cases (fp32 through its CUDA-core
   variant, bf16 through its tensor-core variant), at head dims up to 256,
@@ -74,6 +87,9 @@ TF32_OPS_PER_S = 495e12
 # conv2_w, fc1_w) and the Eq. 4 weights (K=1): N=10 twins over M=5 BSs
 EQ4_K = (1, 10, 32, 64, 512, 2400, 5120, 51200, 2_097_152)
 CNN_PARAMS = 2_156_490
+# the streamed FL round's Eq. 4 over the capacity axis: fc1_w at capacity
+# 100 over 5 BSs
+EQ4_CAPACITY = (100, 2_097_152, 5)
 SEG_RTOL, SEG_ATOL = 1e-5, 1e-6
 FED_TOL = 1e-5
 L2_BYTES = 50 * 2**20
@@ -342,12 +358,26 @@ def phase_timing(torch, sr, fr) -> dict:
                  lambda xx, ww: torch.mv(xx.t(), ww / ww.sum()),
                  copies, n_bytes, 2 * c * n)
     fed.update(C=c, N=n)
+    # the streamed round's capacity-axis Eq. 4 at its largest leaf: the
+    # CNN's fc1_w over a capacity of 100 twins
+    n, k, m = EQ4_CAPACITY
+    vals, ids = _seg_case(torch, gen, n, k, m)
+    n_bytes = n * k * 4 + n * 4 + m * k * 4
+    cap = _timed(
+        torch, f"segment_reduce N={n} K={k} M={m} (capacity-axis Eq. 4)",
+        lambda v, a: sr.segment_reduce_kernel(v, a, m),
+        lambda v, a: sr._seg_tiled_plain(v, a, m),
+        lambda v, a: torch.zeros((m, k), device="cuda").index_add_(
+            0, a.long(), v),
+        [(vals, ids)], n_bytes, n * k)
+    cap.update(N=n, K=k, M=m)
+    del vals, ids
     calls = seg_rows + [seg_rows[-1]]  # the N=100 K=1 call is made twice
     log(f"[timing] segment_reduce, one round's 11 calls (the weights and 8 "
         f"leaves of Eq. 4, Eqs. 12 and 15): kernel "
         f"{sum(r['ms'] for r in calls):.4f} ms, bound "
         f"{sum(r['bound_ms'] for r in calls):.4f} ms")
-    return {"segment": seg_rows, "fedavg": fed}
+    return {"segment": seg_rows, "fedavg": fed, "eq4_capacity": cap}
 
 
 def phase_slice(torch, sr, fr, data, kernels) -> dict:
@@ -1634,6 +1664,658 @@ def phase_marl_fl_hook(torch, sr, fr, data, kernels, agent) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the scenario runners and the always-on service (ROADMAP A8, A9)
+# ---------------------------------------------------------------------------
+
+SCENARIOS = 256          # the runners' batch at the paper's width
+POLICY_SCENARIOS = 32    # run_policy loops over its scenarios
+SCENARIO_ROUNDS = 10
+SCENARIO_CHECK = 8       # scenarios checked GPU against CPU
+SERVE_ROUNDS = 6
+SERVE_RTOL = 1e-5        # round times GPU against CPU
+FL_LOSS_RTOL = 1e-4      # the streamed FL loss GPU against CPU
+
+
+def _scenario_runs(cfg, agent):
+    """(name, runner(batch, draws, device), draw parts, scenarios) of each
+    scenario runner at the paper's width."""
+    from repro_torch.core import scenario
+    from repro_torch.core.consensus import ConsensusConfig
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.migration import MigrationConfig
+
+    r = SCENARIO_ROUNDS
+    return [
+        ("baselines", lambda b, d, dev: scenario.run_baselines(
+            cfg, b, d, device=dev), ("realization", "random"), SCENARIOS),
+        ("faults", lambda b, d, dev: scenario.run_faults(
+            cfg, FaultConfig(), b, r, d, device=dev),
+         ("realization", "outage_init", "faults"), SCENARIOS),
+        ("migration", lambda b, d, dev: scenario.run_migration(
+            cfg, MigrationConfig(p_move=0.1), b, r, d, device=dev),
+         ("realization", "migration"), SCENARIOS),
+        ("consensus", lambda b, d, dev: scenario.run_consensus(
+            cfg, ConsensusConfig(quorum_f=1, byzantine_frac=0.2), b, r, d,
+            device=dev), ("realization", "byzantine", "chain"), SCENARIOS),
+        ("policy", lambda b, d, dev: scenario.run_policy(
+            cfg, agent if dev == "cuda" else _to(agent, "cpu"), b, r,
+            draws=d, device=dev), ("realization", "rollout"),
+         POLICY_SCENARIOS),
+    ]
+
+
+def phase_scenarios(torch, sr, kernels, marl) -> dict:
+    """The scenario runners at the paper's width (``EnvConfig()``: 100
+    twins, 5 BSs) on a ``make_batch`` of 256 scenarios (the policy's
+    rollouts on 32, with the trained agent), 10 rounds or steps each. Each
+    runner is run once to warm up, then timed with every count set to 0
+    just before and read just after; its segment launches are held to
+    ``scenario_launches``. Then 8 scenarios of each on the GPU and the CPU
+    from the same draws."""
+    from repro_torch.core import association as assoc_mod
+    from repro_torch.core import scenario
+    from repro_torch.core.marl import EnvConfig
+
+    t_phase = time.perf_counter()
+    cfg = EnvConfig()
+    batch = scenario.make_batch(0, SCENARIOS)
+    out = {}
+    for name, run, parts, s in _scenario_runs(cfg, marl["ts"].agent):
+        b = scenario.ScenarioBatch(*(None if x is None else x[:s]
+                                     for x in batch))
+        draws = scenario.scenario_draws(b, cfg, parts, SCENARIO_ROUNDS,
+                                        "cuda")
+        run(b, draws, "cuda")  # warm up
+        _reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(b, draws, "cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = sr.KERNEL.launches
+        want = scenario.scenario_launches(name, cfg, s, SCENARIO_ROUNDS)
+        for k, v in res.items():
+            if v.shape[0] != s or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"run_{name} {k}: shape "
+                                     f"{tuple(v.shape)} or not finite")
+        head = {k: round(float(v.float().mean()), 4) for k, v in res.items()}
+        log(f"[scenarios] run_{name}: S={s}, wall {wall:.1f} ms "
+            f"({1e3 * s / wall:.1f} scenarios/s), segment launches "
+            f"{launches} (the code makes {want}); means {json.dumps(head)}")
+        if launches != want:
+            raise AssertionError(f"run_{name} launched the segment kernel "
+                                 f"{launches} times, not {want}")
+        out[name] = {"wall_ms": wall, "scenarios": s, "launches": launches,
+                     "scenarios_per_s": 1e3 * s / wall}
+    # GPU against CPU on 8 scenarios, from the same draws (made on the CPU)
+    b8 = scenario.ScenarioBatch(*(None if x is None else x[:SCENARIO_CHECK]
+                                  for x in batch))
+    worst = 0.0
+    for name, run, parts, _ in _scenario_runs(cfg, marl["ts"].agent):
+        d = scenario.scenario_draws(b8, cfg, parts, SCENARIO_ROUNDS, "cpu")
+        cpu = run(b8, d, "cpu")
+        gpu = run(b8, _to(d, "cuda"), "cuda")
+        for k in cpu:
+            got, want = gpu[k].cpu(), cpu[k]
+            rtol = 1e-4 if name == "policy" else SERVE_RTOL
+            torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
+            rel = float(((got - want).abs() / want.abs().clamp(
+                min=1e-30)).max())
+            worst = max(worst, rel if name != "policy" else 0.0)
+        log(f"[scenarios_gpu_vs_cpu] run_{name}: {len(cpu)} outputs within "
+            f"rtol {1e-4 if name == 'policy' else SERVE_RTOL}")
+    st = scenario.scenario_env(cfg, scenario.scenario_draws(
+        b8, cfg, ("realization",), 0, "cpu"), b8.data_min, b8.data_max,
+        b8.skew)
+    up = torch.full((8, 5), 1e8)
+    greedy = [assoc_mod.greedy_association(cfg.lat, st.data_sizes.to(dev),
+                                           st.freqs.to(dev), up.to(dev))
+              for dev in ("cpu", "cuda")]
+    if not torch.equal(greedy[0], greedy[1].cpu()):
+        raise AssertionError("the batched greedy association differs on the "
+                             "GPU and the CPU")
+    log(f"[scenarios_gpu_vs_cpu] ok (tf32 off): the runners' outputs within "
+        f"rtol {SERVE_RTOL} (largest relative difference {worst:.2e}), the "
+        f"policy's within 1e-4; the greedy association of 8 scenarios "
+        f"equal; phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _serve_setup(torch, data, device, *, fl=True, policy=None,
+                 n_rounds=SERVE_ROUNDS):
+    """The streamed round at the paper's width: ``EnvConfig()`` with
+    migration (p_move 0.1), ``FaultConfig()`` and PBFT (f=1, byzantine 0.2),
+    capacity 100 with churn 0.02/0.02, the CNN's FL at 10 participants x 5
+    iterations x batch 32 over IID shards of the data."""
+    from repro_torch.core import scenario, serve
+    from repro_torch.core.consensus import ConsensusConfig
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.marl import EnvConfig
+    from repro_torch.core.migration import MigrationConfig
+    from repro_torch.fl import stream
+    from repro_torch.fl.partition import iid_partition
+
+    cfg = EnvConfig(migration=MigrationConfig(p_move=0.1),
+                    faults=FaultConfig(),
+                    consensus=ConsensusConfig(quorum_f=1, byzantine_frac=0.2))
+    fcfg = stream.FLServeConfig(model="cnn") if fl else None
+    scfg = serve.ServeConfig(capacity=cfg.n_twins, join_rate=0.02,
+                             leave_rate=0.02, fl=fcfg, policy=policy)
+    batch = scenario.make_batch(0, 1)
+    row = scenario.knob_row(scenario.stream_knobs(
+        scenario.batch_to(batch, device), fcfg=cfg.faults,
+        ccfg=cfg.consensus, lat=cfg.lat), 0)
+    seed = int(batch.seed[0])
+    plan = None
+    if fl:
+        plan = stream.stream_fl_plan(
+            fcfg, iid_partition(data[0][0].shape[0], cfg.n_twins, seed=0),
+            n_rounds)
+        plan = stream.FLPlan(*(x.to(device) for x in plan))
+    draws = serve.stream_draws(cfg, scfg, seed, n_rounds, device)
+
+    def fresh():
+        st = serve.serve_init(cfg, scfg, row, seed=seed, device=device)
+        if fl:
+            st = st._replace(fl=stream.fl_init(
+                fcfg, torch.Generator().manual_seed(0), data, st.active))
+        if policy:
+            st = serve.attach_policy(
+                cfg, st, torch.Generator(device=device).manual_seed(1))
+        return st
+
+    return cfg, scfg, row, plan, draws, fresh
+
+
+def _state_tensors(st):
+    """The serve state's tensors, in a fixed order, for bitwise checks."""
+    env = st.env
+    out = [st.active, st.bad, st.byz, env.data_sizes, env.assoc, env.freqs,
+           env.h_up, env.h_down, *env.chain]
+    if st.fl is not None:
+        for tree in (st.fl.params, st.fl.twin_params, st.fl.twin_mom):
+            out += [tree[k] for k in sorted(tree)]
+    return out
+
+
+def phase_serve_stream(torch, sr, kernels, data) -> dict:
+    """The always-on service with streamed FL at the paper's width: (a) 6
+    overlapped rounds against 6 blocking ones, bit for bit, metrics and
+    final state; (b) the overlapped rounds under the sync debug mode set to
+    raise; (c) device memory flat from the second round on; (d) one round
+    on the GPU against the CPU from one state; (e) the segment launches of
+    the overlapped rounds held to ``serve_launches``. Then a profile and a
+    host split of a round, streaming against the batch runners per axis
+    (churn off), the batched local SGD against the per-twin trainer, one
+    round on the GPU against the CPU and 3 rounds of a policy-driven
+    stream."""
+    from repro_torch.core import serve
+
+    t_phase = time.perf_counter()
+    cfg, scfg, row, plan, draws, fresh = _serve_setup(torch, data, "cuda")
+    step = serve.make_round_step(cfg, scfg)
+    warm_state = fresh()  # one round off the clock, on a state thrown away
+    serve.serve_rounds(cfg, scfg, warm_state, serve.RoundDraws(*(
+        None if x is None else x[:1] for x in draws)), row, step=step,
+        overlap=False, plan=type(plan)(*(x[:1] for x in plan)))
+    del warm_state
+    torch.cuda.synchronize()
+    runs = {}
+    for overlap in (True, False):
+        state = fresh()
+        mem, ends = [], []
+
+        def watched(*a):
+            out = step(*a)
+            mem.append(torch.cuda.memory_allocated())
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            ends.append(ev)
+            return out
+
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if overlap:
+            _reset(kernels)
+            torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            state, m = serve.serve_rounds(cfg, scfg, state, draws, row,
+                                          step=watched, overlap=overlap,
+                                          plan=plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        issued = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = sr.KERNEL.launches
+        metrics = serve.stack_metrics(m)
+        per_round = [start.elapsed_time(ends[0])] + [
+            a.elapsed_time(b) for a, b in zip(ends, ends[1:])]
+        runs[overlap] = (metrics, state, mem)
+        log(f"[serve_stream] {'overlapped' if overlap else 'blocking'}: "
+            f"{SERVE_ROUNDS} rounds, wall {wall:.1f} ms "
+            f"({1e3 * SERVE_ROUNDS / wall:.2f} rounds/s), host done "
+            f"issuing after {issued:.1f} ms; rounds (CUDA events) "
+            f"{[round(x, 2) for x in per_round]} ms; memory_allocated after "
+            f"each round {mem}")
+        if overlap:
+            over = {"wall_ms": wall, "rounds_per_s": 1e3 * SERVE_ROUNDS
+                    / wall, "issued_ms": issued, "round_ms": per_round,
+                    "launches": launches}
+    log(f"[serve_stream] metrics: " + json.dumps(
+        {k: [round(float(x), 5) for x in v.reshape(SERVE_ROUNDS, -1)[:, 0]]
+         for k, v in runs[True][0].items()}))
+    want = serve.serve_launches(cfg, scfg, SERVE_ROUNDS,
+                                n_leaves=len(runs[True][1].fl.params))
+    if over["launches"] != want:
+        raise AssertionError(f"the stream launched the segment kernel "
+                             f"{over['launches']} times, not {want}")
+    (m_o, st_o, mem_o), (m_b, st_b, _) = runs[True], runs[False]
+    for k in m_b:
+        if not (m_o[k] == m_b[k]).all():
+            raise AssertionError(f"overlapped and blocking {k} differ")
+    for a, b in zip(_state_tensors(st_o), _state_tensors(st_b)):
+        if not torch.equal(a, b):
+            raise AssertionError("overlapped and blocking states differ")
+    if len(set(mem_o[1:])) != 1:
+        raise AssertionError(f"device memory not flat from the second round "
+                             f"on: {mem_o}")
+    for k in ("fl_loss", "round_time"):
+        if not (m_o[k] == m_o[k]).all():
+            raise AssertionError(f"{k} is not finite")
+    log(f"[serve_stream] ok: overlapped and blocking rounds equal bit for "
+        f"bit (metrics and final state); no host sync inside the overlapped "
+        f"rounds (sync debug mode 'error'); memory_allocated flat from the "
+        f"second round on ({mem_o[1]} B); {over['launches']} segment "
+        f"launches, as the code makes them")
+    del runs, st_o, st_b
+    over["profile"] = _serve_profile(torch, "serve_profile", (
+        cfg, scfg, row, plan, draws, fresh))
+    over["stream_vs_batch"] = _stream_vs_batch(torch)
+    over["local_sgd"] = _local_sgd_timing(torch, data)
+    over["gpu_vs_cpu"] = _serve_gpu_vs_cpu(torch, data)
+    over["policy_launches"] = _serve_policy(torch, sr, kernels, data)
+    log(f"[serve_stream] phase {time.perf_counter() - t_phase:.1f} s")
+    return over
+
+
+def _serve_gpu_vs_cpu(torch, data) -> dict:
+    """One streamed round at the paper's width from one state on the GPU
+    and the CPU (the same draws, plan and initial weights)."""
+    from repro_torch.core import serve
+
+    res = {}
+    for dev in ("cpu", "cuda"):
+        cfg, scfg, row, plan, draws, fresh = _serve_setup(torch, data, dev,
+                                                          n_rounds=1)
+        t0 = time.perf_counter()
+        st, m = serve.serve_rounds(cfg, scfg, fresh(), draws, row,
+                                   overlap=False, plan=plan)
+        res[dev] = (serve.stack_metrics(m), _to(st, "cpu"))
+        log(f"[serve_gpu_vs_cpu] {dev}: round in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms; round_time "
+            f"{float(res[dev][0]['round_time'][0]):.6f} s, fl_loss "
+            f"{float(res[dev][0]['fl_loss'][0]):.7f}")
+    (mc, sc), (mg, sg) = res["cpu"], res["cuda"]
+    for name, a, b in (("active", sg.active, sc.active),
+                       ("assoc", sg.env.assoc, sc.env.assoc),
+                       ("chain verdicts", sg.env.chain.verdicts,
+                        sc.env.chain.verdicts)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"GPU and CPU rounds differ in {name}")
+    for k in ("n_active", "n_joined", "n_left", "fl_n_participants",
+              "fl_accept_frac", "accept_frac"):
+        if not (mg[k] == mc[k]).all():
+            raise AssertionError(f"GPU and CPU rounds differ in {k}")
+    rel = {k: float((abs(mg[k] - mc[k]) / abs(mc[k]).clip(min=1e-30)).max())
+           for k in ("round_time", "fl_bs_weight", "fl_loss")}
+    if max(rel["round_time"], rel["fl_bs_weight"]) > SERVE_RTOL or \
+            rel["fl_loss"] > FL_LOSS_RTOL:
+        raise AssertionError(f"GPU vs CPU relative differences {rel} above "
+                             f"{SERVE_RTOL} / {FL_LOSS_RTOL}")
+    log(f"[serve_gpu_vs_cpu] ok (tf32 off): the same active mask, "
+        f"associations, chain verdicts, participants and accept fractions; "
+        f"relative differences: round_time {rel['round_time']:.2e} and the "
+        f"Eq. 4 weights {rel['fl_bs_weight']:.2e} <= {SERVE_RTOL}, fl_loss "
+        f"{rel['fl_loss']:.2e} <= {FL_LOSS_RTOL}")
+    return rel
+
+
+def _serve_policy(torch, sr, kernels, data) -> int:
+    """3 rounds of a policy-driven stream (a fresh factorized agent picks
+    each round's association) at the paper's width, with every axis and
+    churn, no FL."""
+    from repro_torch.core import serve
+
+    rounds = 3
+    cfg, scfg, row, _, draws, fresh = _serve_setup(
+        torch, data, "cuda", fl=False, policy="factorized", n_rounds=rounds)
+    state = fresh()
+    _reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = serve.serve_rounds(cfg, scfg, state, draws, row)
+    metrics = serve.stack_metrics(m)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = sr.KERNEL.launches
+    want = serve.serve_launches(cfg, scfg, rounds)
+    log(f"[serve_policy] {rounds} rounds in {wall:.1f} ms; round_time "
+        f"{[round(float(x), 3) for x in metrics['round_time']]} s; replay "
+        f"rows {state.buf.size}; segment launches {launches} (the code "
+        f"makes {want})")
+    if launches != want or state.buf.size != rounds:
+        raise AssertionError(f"policy stream: {launches} launches (want "
+                             f"{want}), replay size {state.buf.size}")
+    if not (metrics["round_time"] > 0).all():
+        raise AssertionError("policy stream: round times not positive")
+    return launches
+
+
+def _local_sgd_timing(torch, data) -> dict:
+    """The streamed round's local SGD against the batch round's, on the
+    card: 10 participants x 5 iterations x batch 32 of the CNN, as
+    ``fl.client.local_sgd_stacked`` (one batched computation on
+    pre-gathered minibatches) and as ``DTWNSystem``'s trainer (one twin
+    after the other, each batch drawn on the host). Median of 5
+    synchronized runs after a warm one."""
+    import numpy as np
+
+    from repro_torch.fl import client
+    from repro_torch.fl.partition import iid_partition
+    from repro_torch.models import cnn
+    from repro_torch.optim import make_optimizer
+
+    p, iters, bs = 10, 5, 32
+    params = cnn.init_params(torch.Generator().manual_seed(3), device="cuda")
+    x = torch.as_tensor(data[0][0]).to("cuda")
+    y = torch.as_tensor(data[0][1]).to("cuda").long()
+    shards = iid_partition(x.shape[0], 100, seed=0)[:p]
+    rng = np.random.RandomState(0)
+    idx = torch.as_tensor(np.stack([s[rng.choice(len(s), (iters, bs))]
+                                    for s in shards])).to("cuda")
+    opt = make_optimizer("sgd", lr=0.05, momentum=0.9)
+    trainer = client.make_local_trainer(cnn.loss_fn, lr=0.05)
+
+    def stacked():
+        client.local_sgd_stacked(cnn.loss_stacked, opt, params, x[idx],
+                                 y[idx])
+
+    def looped():
+        for u, shard in enumerate(shards):
+            trainer(params, x, y, batch_size=bs, local_iters=iters, seed=u,
+                    rows=shard[:len(shard) // 2])
+
+    out = {}
+    for name, fn in (("stacked", stacked), ("per_twin", looped)):
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+    log(f"[local_sgd] 10 twins x 5 iterations x batch 32 of the CNN: "
+        f"batched (local_sgd_stacked) {out['stacked']:.2f} ms, one twin "
+        f"after the other (DTWNSystem's trainer) {out['per_twin']:.2f} ms")
+    return out
+
+
+def _stream_vs_batch(torch) -> dict:
+    """Streaming against the batch runners on the card, churn off: 5
+    streamed rounds of scenario row 3 (``EnvConfig()``, a fixed full
+    population) per axis against the runner's row 3 of a 64-scenario batch
+    (one grouped launch sums 44 scenarios). The fractions of counts must be
+    equal, the other floats within rtol 1e-6; returns each axis's largest
+    relative difference (0: bit for bit)."""
+    from repro_torch.core import scenario, serve
+    from repro_torch.core.consensus import ConsensusConfig
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.marl import EnvConfig
+    from repro_torch.core.migration import MigrationConfig
+
+    k, i = 5, 3
+    batch = scenario.make_batch(0, 64)
+    base = EnvConfig()
+    axes = {
+        "baseline": (base, lambda c: scenario.run_baselines(
+            c, batch, device="cuda"),
+                     [("round_time", "average")], ()),
+        "faults": (dataclasses.replace(base, faults=FaultConfig()),
+                   lambda c: scenario.run_faults(c, c.faults, batch, k,
+                                                 device="cuda"),
+                   [("round_time", "round_times")],
+                   [("straggler_frac", "straggler_frac"),
+                    ("outage_frac", "outage_frac")]),
+        "migration": (dataclasses.replace(
+            base, migration=MigrationConfig(p_move=0.1)),
+            lambda c: scenario.run_migration(c, c.migration, batch, k,
+                                             device="cuda"),
+            [("round_time", "round_times"), ("imbalance", "imbalance")],
+            [("migration_rate", "migration_rates")]),
+        "consensus": (dataclasses.replace(
+            base, consensus=ConsensusConfig(quorum_f=1, byzantine_frac=0.2)),
+            lambda c: scenario.run_consensus(c, c.consensus, batch, k,
+                                             device="cuda"),
+            [("round_time", "round_times"),
+             ("consensus_time", "consensus_time"),
+             ("honest_stake_share", "honest_stake_share")],
+            [("accept_frac", "accept_frac")]),
+    }
+    out = {}
+    for name, (cfg, run, floats, counts) in axes.items():
+        ref = {key: v[i].cpu() for key, v in run(cfg).items()}
+        scfg = serve.ServeConfig(capacity=cfg.n_twins)
+        row = scenario.knob_row(scenario.stream_knobs(
+            scenario.batch_to(batch, "cuda"), fcfg=cfg.faults,
+            ccfg=cfg.consensus, lat=cfg.lat), i)
+        seed = int(batch.seed[i])
+        st = serve.serve_init(cfg, scfg, row, seed=seed, device="cuda")
+        _, m = serve.serve_rounds(cfg, scfg, st, serve.stream_draws(
+            cfg, scfg, seed, k, "cuda"), row, n_rounds=k, overlap=False)
+        m = {key: v.cpu() for key, v in m.items()}
+        worst = 0.0
+        for mk, rk in floats + list(counts):
+            got, want = m[mk], ref[rk].expand(m[mk].shape)
+            if mk == "honest_stake_share":
+                got, want = got[-1], ref[rk]
+            rel = float(((got - want).abs() / want.abs().clamp(
+                min=1e-30)).max())
+            if (mk, rk) in counts and rel != 0.0:
+                raise AssertionError(f"streamed {mk} differs from the "
+                                     f"runner's on the card ({name})")
+            if rel > 1e-6:
+                raise AssertionError(f"streamed {mk} {rel:.2e} from the "
+                                     f"runner's ({name}), above rtol 1e-6")
+            worst = max(worst, rel)
+        out[name] = worst
+        log(f"[stream_vs_batch] {name}: {k} streamed rounds of row {i} "
+            f"against the runner's row {i} of 64: counts equal, largest "
+            f"relative difference {worst:.2e}"
+            + (" (bit for bit)" if worst == 0.0 else ""))
+    return out
+
+
+PROFILE_ROUNDS = 3
+
+
+def _serve_profile(torch, tag, setup) -> dict:
+    """Where a warm streamed round's time goes: a torch.profiler trace of
+    the device over 3 overlapped rounds (device busy and idle share, device
+    events a round, the largest kernels; the host is not traced), then the
+    host time of each part of a round, each part synchronized, over 3
+    blocking rounds: local SGD, Eq. 4 over the capacity axis, the chain
+    round, churn (the env's and the FL buffers'), migration."""
+    from repro_torch.core import consensus, hierarchy, migration, serve
+    from repro_torch.fl import client, stream
+
+    cfg, scfg, row, plan, draws, fresh = setup
+    k = PROFILE_ROUNDS
+    head = serve.RoundDraws(*(None if x is None else x[:k] for x in draws))
+    plan_k = None if plan is None else type(plan)(*(x[:k] for x in plan))
+    state = fresh()
+    serve.serve_rounds(cfg, scfg, state, head, row, n_rounds=1,
+                       overlap=False, plan=plan_k)  # warm
+    state = fresh()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.start()
+    serve.serve_rounds(cfg, scfg, state, head, row, n_rounds=k, plan=plan_k)
+    torch.cuda.synchronize()
+    prof.stop()
+    wall = (time.perf_counter() - t0) * 1e3
+    out = {"wall_ms": wall / k}
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        log(f"[{tag}] device time: not measured (no device events)")
+    else:
+        busy = importlib.import_module(
+            "repro_torch.launch.profile_round")._union_us(
+                (e.time_range.start, e.time_range.end) for e in dev) / 1e3
+        out.update(busy_ms=busy / k, idle=1 - busy / wall,
+                   events=len(dev) / k)
+        log(f"[{tag}] {k} warm rounds (profiler on): {wall / k:.2f} ms a "
+            f"round, device busy {busy / k:.2f} ms a round, idle share "
+            f"{100 * (1 - busy / wall):.1f}%, {len(dev) / k:.0f} device "
+            f"events a round")
+        by_name = {}
+        for e in dev:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start)
+                               / 1e3, n + 1)
+        for name, (ms, n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:6]:
+            log(f"[{tag}]   {ms / k:8.4f} ms a round {n / k:6.1f}x  "
+                f"{name[:90]}")
+    parts = {}
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+            return res
+        return wrapper
+
+    targets = [(client, "local_sgd_stacked", "local SGD"),
+               (hierarchy, "bs_aggregate_stacked", "Eq. 4"),
+               (consensus, "chain_round", "chain"),
+               (serve, "churn_step", "churn"),
+               (stream, "fl_churn_update", "FL churn"),
+               (migration, "migration_step", "migration")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+    state = fresh()
+    try:
+        for mod, name, label in targets:
+            setattr(mod, name, timed(label, getattr(mod, name)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.serve_rounds(cfg, scfg, state, head, row, n_rounds=k,
+                           overlap=False, plan=plan_k)
+        torch.cuda.synchronize()
+        step = (time.perf_counter() - t0) * 1e3 / k
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    split = {name: v * 1e3 / k for name, v in parts.items()}
+    out.update(split_round_ms=step, split=split)
+    log(f"[{tag}] host split over {k} blocking rounds (each part "
+        f"synchronized): round {step:.2f} ms; " + ", ".join(
+            f"{name} {v:.2f}" for name, v in sorted(
+                split.items(), key=lambda kv: -kv[1]))
+        + f"; rest {step - sum(split.values()):.2f} ms")
+    return out
+
+
+def _cli_setup(torch):
+    """The serving CLI's stream at ``CLI_ARGV``: capacity 10,000 over 10
+    BSs, churn 0.01/0.01, the tiny model's FL (10 participants x 5
+    iterations x batch 8 on cyclic shards of 128 of 4,096 samples)."""
+    from repro_torch.core import scenario, serve
+    from repro_torch.core.marl import EnvConfig
+    from repro_torch.data import cifar10
+    from repro_torch.fl import stream
+
+    cfg = EnvConfig(n_twins=10000, n_bs=10)
+    fcfg = stream.FLServeConfig(model="tiny", batch_size=8, verify=False)
+    scfg = serve.ServeConfig(capacity=10000, join_rate=0.01, leave_rate=0.01,
+                             fl=fcfg)
+    data = cifar10.load(max_train=4096, max_test=512)
+    batch = scenario.make_batch(0, 1)
+    row = scenario.knob_row(scenario.stream_knobs(
+        scenario.batch_to(batch, "cuda")), 0)
+    seed = int(batch.seed[0])
+    plan = stream.stream_fl_plan(fcfg, stream.cyclic_shards(4096, 10000, 128),
+                                 PROFILE_ROUNDS)
+    plan = stream.FLPlan(*(x.to("cuda") for x in plan))
+    draws = serve.stream_draws(cfg, scfg, seed, PROFILE_ROUNDS, "cuda")
+
+    def fresh():
+        st = serve.serve_init(cfg, scfg, row, seed=seed, device="cuda")
+        return st._replace(fl=stream.fl_init(
+            fcfg, torch.Generator().manual_seed(2), data, st.active))
+
+    return cfg, scfg, row, plan, draws, fresh
+
+
+CLI_ARGV = ["--capacity", "10000", "--rounds", "20", "--fl", "--fl-model",
+            "tiny", "--join", "0.01", "--leave", "0.01"]
+
+
+def phase_serve_cli(torch, sr, kernels) -> dict:
+    """``python -m repro_torch.launch.serve_dtwn`` at the README's example
+    (capacity 10,000, 20 rounds, the tiny model's FL, churn 0.01/0.01; its
+    own warm-up round first), with every count set to 0 just before and
+    read just after."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.core import serve
+    from repro_torch.core.marl import EnvConfig
+    from repro_torch.fl.stream import FLServeConfig
+    from repro_torch.launch import serve_dtwn
+
+    log(f"[serve_cli] python -m repro_torch.launch.serve_dtwn "
+        f"{' '.join(CLI_ARGV)}")
+    _reset(kernels)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_dtwn.main(CLI_ARGV)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"[serve_cli] | {line}")
+    launches = sr.KERNEL.launches
+    cfg = EnvConfig(n_twins=10000, n_bs=10)
+    scfg = serve.ServeConfig(capacity=10000, join_rate=0.01, leave_rate=0.01,
+                             fl=FLServeConfig(model="tiny"))
+    want = serve.serve_launches(cfg, scfg, 21, n_leaves=4)
+    rate = re.search(r"\(([\d.]+) rounds/s\)", text)
+    loss = re.search(r"fl_loss\s+([\d.]+) -> ([\d.]+)", text)
+    log(f"[serve_cli] rc {rc}, {wall:.1f} s in all; segment launches "
+        f"{launches} (the code makes {want}: the warm-up round and 20)")
+    if rc != 0 or rate is None or loss is None:
+        raise AssertionError("the serving CLI failed")
+    if launches != want:
+        raise AssertionError(f"the CLI launched the segment kernel "
+                             f"{launches} times, not {want}")
+    return {"rounds_per_s": float(rate.group(1)), "launches": launches,
+            "fl_loss": [float(loss.group(1)), float(loss.group(2))],
+            "profile": _serve_profile(torch, "serve_cli_profile",
+                                      _cli_setup(torch))}
+
+
 def main() -> int:
     import torch
 
@@ -1680,7 +2362,11 @@ def main() -> int:
     phase_marl_profile(torch, kernels)
     marl_grad_gap = phase_marl_gpu_vs_cpu(torch, sr, marl)
     hook = phase_marl_fl_hook(torch, sr, fr, data, kernels, marl["ts"].agent)
+    scen = phase_scenarios(torch, sr, kernels, marl)
+    stream = phase_serve_stream(torch, sr, kernels, data)
     del data
+    cli = phase_serve_cli(torch, sr, kernels)
+    torch.cuda.empty_cache()
     served = phase_serve(torch, kernels, fa, serve)
     phase_serve_kernel_vs_plain(torch, serve)
     phase_serve_gpu_vs_cpu(torch, fa, serve)
@@ -1690,6 +2376,7 @@ def main() -> int:
 
     fc1 = timing["segment"][EQ4_K.index(2_097_152)]
     fed = timing["fedavg"]
+    eq4c = timing["eq4_capacity"]
     kernels = [
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
@@ -1699,12 +2386,22 @@ def main() -> int:
          "marl_launches": marl["launches"],
          "marl_options_launches": marl["options_launches"],
          "marl_hook_launches": hook["segment_reduce"],
+         "scenario_launches": {k: v["launches"] for k, v in scen.items()},
+         "serve_launches": stream["launches"],
+         "serve_policy_launches": stream["policy_launches"],
+         "serve_cli_launches": cli["launches"],
          "max_abs_err": seg_err, "grad_max_abs_err": grad_err,
          "marl_actor_grad_gpu_vs_cpu": marl_grad_gap,
          "ms": fc1["ms"], "plain_ms": fc1["plain_ms"],
          "bound_ms": fc1["bound_ms"], "bound_by": fc1["bound_by"],
          "library_ms": fc1["library_ms"], "call_ms": fc1["call_ms"],
-         "shape": {"N": fc1["N"], "K": fc1["K"], "M": fc1["M"]}},
+         "shape": {"N": fc1["N"], "K": fc1["K"], "M": fc1["M"]},
+         "eq4_capacity": {"shape": {"N": eq4c["N"], "K": eq4c["K"],
+                                    "M": eq4c["M"]},
+                          "ms": eq4c["ms"], "plain_ms": eq4c["plain_ms"],
+                          "bound_ms": eq4c["bound_ms"],
+                          "bound_by": eq4c["bound_by"],
+                          "library_ms": eq4c["library_ms"]}},
         {"name": "fedavg_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
          "replaces": "src/repro/kernels/fedavg_reduce.py:19",

@@ -6,7 +6,9 @@ where a reference system starts takes that system's state as arrays:
 channel gains; an LM takes the reference's parameter tree, leaf by leaf as
 numpy. Both models keep the reference's layout, so nothing is transposed.
 The MARL controller's state comes over the same way: the reference's
-``MADDPGState`` and ``EnvState`` with their leaves as numpy arrays.
+``MADDPGState`` and ``EnvState`` with their leaves as numpy arrays, and so
+do the scenario runners' and the serve loop's: a ``ScenarioBatch``, an
+``FLState`` and a ``ServeState``.
 """
 from __future__ import annotations
 
@@ -89,3 +91,67 @@ def env_state_from_numpy(tree, device):
         dist=_tensors(tree.dist, device),
         assoc=_tensors(tree.assoc, device).to(torch.int32),
         t=int(np.asarray(tree.t)), chain=chain)
+
+
+def scenario_batch_from_numpy(tree):
+    """A reference ``ScenarioBatch`` with numpy leaves -> the port's, on the
+    CPU: the float axes as fp32 tensors, and the row keys (S, 2) uint32
+    folded into the port's int64 row seeds (which only seed the port's own
+    default draws)."""
+    from repro_torch.core.scenario import ScenarioBatch
+
+    key = np.asarray(tree.key).astype(np.int64)
+    seed = torch.from_numpy((key[:, 0] << 26) ^ key[:, 1])
+    return ScenarioBatch(seed, *(
+        None if getattr(tree, f) is None
+        else torch.tensor(np.asarray(getattr(tree, f), np.float32))
+        for f in ScenarioBatch._fields[1:]))
+
+
+def fl_state_from_numpy(tree, device):
+    """A reference ``FLState`` with numpy leaves -> the port's ``FLState``
+    on ``device`` (labels as int64)."""
+    from repro_torch.fl.stream import FLState
+
+    def t(a, dtype=None):
+        a = np.asarray(a)
+        if a.dtype.kind == "f":
+            a = a.astype(np.float32)
+        out = torch.tensor(a, device=device)
+        return out if dtype is None else out.to(dtype)
+
+    return FLState(
+        params={k: t(v) for k, v in tree.params.items()},
+        twin_params={k: t(v) for k, v in tree.twin_params.items()},
+        twin_mom={k: t(v) for k, v in tree.twin_mom.items()},
+        malicious=t(tree.malicious, torch.bool), x=t(tree.x),
+        y=t(tree.y, torch.int64), x_eval=t(tree.x_eval),
+        y_eval=t(tree.y_eval, torch.int64))
+
+
+def serve_state_from_numpy(tree, device):
+    """A reference ``ServeState`` with numpy leaves -> the port's
+    ``ServeState`` on ``device``: the env (``env_state_from_numpy``), the
+    masks as bool, the agent and replay in policy mode (the replay's
+    pointer and size as host ints), the FL state, and the round counter as
+    a host int."""
+    from repro_torch.core.marl.replay import Replay
+    from repro_torch.core.serve import ServeState
+
+    buf = None
+    if getattr(tree, "buf", None) is not None:
+        b = tree.buf
+        buf = Replay(*(_tensors(getattr(b, f), device)
+                       for f in ("state", "act_enc", "reward", "next_state")),
+                     ptr=int(np.asarray(b.ptr)), size=int(np.asarray(b.size)))
+    return ServeState(
+        env=env_state_from_numpy(tree.env, device),
+        active=_tensors(tree.active, device).to(torch.bool),
+        bad=_tensors(tree.bad, device).to(torch.bool),
+        byz=_tensors(tree.byz, device).to(torch.bool),
+        agent=(None if getattr(tree, "agent", None) is None
+               else maddpg_state_from_numpy(tree.agent, device)),
+        buf=buf,
+        fl=(None if getattr(tree, "fl", None) is None
+            else fl_state_from_numpy(tree.fl, device)),
+        round=int(np.asarray(tree.round)))

@@ -10,7 +10,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import latency as lat
-from repro_torch.kernels.segment_reduce import segment_count, segment_reduce
 
 
 def random_association(gen: torch.Generator, n_twins: int, n_bs: int,
@@ -27,13 +26,14 @@ def average_association(n_twins: int, n_bs: int, device=None) -> torch.Tensor:
 
 def bs_loads(assoc, data_sizes, n_bs: int, *, backend: str = "auto") -> dict:
     """Per-BS ``counts`` (M,), ``loads`` (M,) total samples and
-    ``imbalance`` max/mean load, through the segment-reduce dispatch."""
-    counts = segment_count(assoc, n_bs, backend=backend)
-    loads = segment_reduce(torch.as_tensor(data_sizes, dtype=torch.float32),
-                           assoc, n_bs, backend=backend)
-    mean = torch.clamp(torch.mean(loads), min=1e-12)
+    ``imbalance`` max/mean load, through the segment-reduce dispatch. A
+    batch of associations and populations (S, N) gives (S, M) counts and
+    loads and (S,) imbalances."""
+    counts = lat.twin_counts(assoc, n_bs, backend=backend)
+    loads = lat.bs_sum(data_sizes, assoc, n_bs, backend=backend)
+    mean = torch.clamp(torch.mean(loads, dim=-1), min=1e-12)
     return {"counts": counts, "loads": loads,
-            "imbalance": torch.max(loads) / mean}
+            "imbalance": torch.amax(loads, dim=-1) / mean}
 
 
 def greedy_association(params: lat.LatencyParams, data_sizes, freqs,
@@ -43,27 +43,34 @@ def greedy_association(params: lat.LatencyParams, data_sizes, freqs,
 
     data_sizes (N,), freqs (M,) Hz, uplink (M,) bit/s; arrays or tensors,
     computed on ``data_sizes``' device (the CPU for numpy input). Returns
-    assoc (N,) int32. The reference's ``lax.scan`` is a loop here; the
-    choices stay on the device, so the loop never waits for it.
+    assoc (N,) int32. A batch of scenarios, data_sizes (S, N) and uplink
+    (S, M), gives (S, N): one loop over the N twins serves every scenario.
+    The reference's ``lax.scan`` is a loop here; the choices stay on the
+    device (gathers and scatters, never a 0-dim index), so the loop never
+    waits for it.
     """
     data_sizes = torch.as_tensor(data_sizes, dtype=torch.float32)
     dev = data_sizes.device
     freqs = torch.as_tensor(freqs, dtype=torch.float32, device=dev)
     uplink = torch.as_tensor(uplink, dtype=torch.float32, device=dev)
-    n_twins = data_sizes.shape[0]
-    order = torch.argsort(-data_sizes, stable=True)
-    load = torch.zeros(freqs.shape[0], dtype=torch.float32, device=dev)
+    single = data_sizes.ndim == 1
+    if single:
+        data_sizes, uplink = data_sizes[None], uplink[None]
+    s, n_twins = data_sizes.shape
+    order = torch.argsort(-data_sizes, dim=1, stable=True)
+    sorted_d = torch.gather(data_sizes, 1, order)
+    load = torch.zeros((s, freqs.shape[0]), dtype=torch.float32, device=dev)
     upload = params.model_size_bits / torch.clamp(uplink, min=1.0)
-    choices = torch.empty(n_twins, dtype=torch.int64, device=dev)
+    choices = torch.empty((s, n_twins), dtype=torch.int64, device=dev)
     for i in range(n_twins):
-        d = data_sizes[order[i]]
-        t_add = d * params.cycles_per_sample / freqs + upload
-        choice = torch.argmin(load + t_add)
-        load[choice] += t_add[choice]
-        choices[i] = choice
-    assoc = torch.zeros(n_twins, dtype=torch.int32, device=dev)
-    assoc[order] = choices.to(torch.int32)
-    return assoc
+        t_add = (sorted_d[:, i:i + 1] * params.cycles_per_sample / freqs
+                 + upload)
+        choice = torch.argmin(load + t_add, dim=1, keepdim=True)
+        load.scatter_add_(1, choice, torch.gather(t_add, 1, choice))
+        choices[:, i:i + 1] = choice
+    assoc = torch.zeros((s, n_twins), dtype=torch.int32, device=dev)
+    assoc.scatter_(1, order, choices.to(torch.int32))
+    return assoc[0] if single else assoc
 
 
 def assoc_from_scores(scores: torch.Tensor) -> torch.Tensor:

@@ -61,15 +61,17 @@ def _noise_watt(cfg: WirelessConfig) -> float:
 def uplink_rate(cfg: WirelessConfig, tau, h, dist) -> torch.Tensor:
     """Eq. 7. tau: (M, C) time fractions; h: (M, C) gains; dist: (M,).
     Returns the per-BS achievable uplink rate, bits/s, with leave-one-out
-    co-channel interference weighted by the other BSs' time shares."""
+    co-channel interference weighted by the other BSs' time shares. ``h``
+    and ``dist`` may carry a leading scenario axis, (S, M, C) and (S, M),
+    giving (S, M) rates."""
     P = dbm_to_watt(cfg.p_uplink_dbm)
-    pl = dist[:, None] ** (-cfg.path_loss_exp)  # (M, 1)
-    sig = P * h * pl                            # (M, C) received power
-    tot = torch.sum(tau * sig, dim=0, keepdim=True)
+    pl = dist[..., None] ** (-cfg.path_loss_exp)  # (..., M, 1)
+    sig = P * h * pl                              # (..., M, C) received power
+    tot = torch.sum(tau * sig, dim=-2, keepdim=True)
     interf = tot - tau * sig
     sinr = sig / (interf + _noise_watt(cfg))
     per_ch = cfg.subchannel_bw_hz * torch.log2(1.0 + sinr)
-    return torch.sum(tau * per_ch, dim=1)
+    return torch.sum(tau * per_ch, dim=-1)
 
 
 def apply_outage(rate, bad, floor) -> torch.Tensor:
@@ -82,12 +84,13 @@ def apply_outage(rate, bad, floor) -> torch.Tensor:
 
 
 def downlink_rate(cfg: WirelessConfig, h_down, dist) -> torch.Tensor:
-    """Eq. 8: MBS broadcast of the global model. h_down: (M, C)."""
+    """Eq. 8: MBS broadcast of the global model. h_down: (M, C), or
+    (S, M, C) with dist (S, M) for a batch of scenarios."""
     P = dbm_to_watt(cfg.p_downlink_dbm)
-    pl = dist[:, None] ** (-cfg.path_loss_exp)
+    pl = dist[..., None] ** (-cfg.path_loss_exp)
     sig = P * h_down * pl
-    tot = torch.sum(sig, dim=0, keepdim=True)
+    tot = torch.sum(sig, dim=-2, keepdim=True)
     interf = tot - sig
     sinr = sig / (interf + _noise_watt(cfg))
     per_ch = cfg.subchannel_bw_hz * torch.log2(1.0 + sinr)
-    return torch.sum(per_ch, dim=1)
+    return torch.sum(per_ch, dim=-1)

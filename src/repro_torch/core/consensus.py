@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import numbers
 from typing import NamedTuple, Optional
 
 import torch
@@ -64,15 +65,18 @@ class ChainState(NamedTuple):
 
 
 def chain_init(ccfg: ConsensusConfig, data_per_bs) -> ChainState:
-    """Eq. 6: initial coins proportional to hosted twin data."""
+    """Eq. 6: initial coins proportional to hosted twin data. A batch of
+    chains, ``data_per_bs`` (S, M), gives every field a leading S axis."""
     d = torch.as_tensor(data_per_bs, dtype=torch.float32)
-    total = torch.clamp(torch.sum(d), min=1e-9)
-    m, dev = d.shape[0], d.device
+    total = torch.clamp(torch.sum(d, dim=-1, keepdim=True), min=1e-9)
+    lead, m, dev = tuple(d.shape[:-1]), d.shape[-1], d.device
     return ChainState(
         stakes=ccfg.s_ini * d / total,
-        verdicts=torch.ones((ccfg.history, m), dtype=torch.float32, device=dev),
-        rewards=torch.zeros((ccfg.history, m), dtype=torch.float32, device=dev),
-        round=torch.zeros((), dtype=torch.int32, device=dev),
+        verdicts=torch.ones(lead + (ccfg.history, m), dtype=torch.float32,
+                            device=dev),
+        rewards=torch.zeros(lead + (ccfg.history, m), dtype=torch.float32,
+                            device=dev),
+        round=torch.zeros(lead, dtype=torch.int32, device=dev),
     )
 
 
@@ -90,7 +94,7 @@ def elect_producers(stakes, n_producers: int) -> torch.Tensor:
 def current_producer(state: ChainState, n_producers: int) -> torch.Tensor:
     """Round-robin over the elected set, as the host ledger rotates."""
     producers = elect_producers(state.stakes, n_producers)
-    return producers[torch.remainder(state.round, n_producers).long()]
+    return _take(producers, torch.remainder(state.round, n_producers).long())
 
 
 def verify_metas(losses, submitted, *, tolerance, n_clients=None,
@@ -101,18 +105,30 @@ def verify_metas(losses, submitted, *, tolerance, n_clients=None,
     cohort is not majority-suspect (``n_suspect * 2 > n_clients``), in
     fp32. The median is over the submitted subset only: non-submitters get
     an out-of-range segment id. ``group``/``n_groups`` gate per committee.
-    All inputs (M,); returns (M,) bool (False for non-submitters).
+    All inputs (M,); returns (M,) bool (False for non-submitters). A batch
+    of rounds, (S, M) losses and masks, gates every row on its own medians:
+    row s's segments are offset by ``s * (n_groups + 1)`` in one median.
     """
     losses = torch.as_tensor(losses, dtype=torch.float32)
-    sub = torch.as_tensor(submitted, dtype=torch.bool, device=losses.device)
-    m = losses.shape[0]
-    g = (torch.zeros((m,), dtype=torch.int64, device=losses.device)
-         if group is None else torch.as_tensor(group, device=losses.device).long())
+    dev = losses.device
+    sub = torch.as_tensor(submitted, dtype=torch.bool, device=dev)
+    m = losses.shape[-1]
+    g = (torch.zeros((m,), dtype=torch.int64, device=dev)
+         if group is None else torch.as_tensor(group, device=dev).long())
     seg = torch.where(sub, g, n_groups)
-    med = segment_median(losses, seg, n_groups)
-    ok = losses <= med[torch.clamp(g, 0, n_groups - 1)] + tolerance
+    if losses.ndim == 1:
+        med = segment_median(losses, seg, n_groups)
+    else:
+        rows = losses.shape[0]
+        off = torch.arange(rows, device=dev)[:, None] * (n_groups + 1)
+        med = segment_median(losses.reshape(-1), (seg + off).reshape(-1),
+                             rows * (n_groups + 1)).reshape(
+                                 rows, n_groups + 1)[:, :n_groups]
+    ok = losses <= torch.gather(
+        med, -1, torch.clamp(g, 0, n_groups - 1).expand(
+            losses.shape)) + tolerance
     if n_clients is None or n_suspect is None:
-        suspect = torch.zeros((m,), dtype=torch.bool, device=losses.device)
+        suspect = torch.zeros(losses.shape, dtype=torch.bool, device=dev)
     else:
         suspect = (torch.as_tensor(n_suspect, dtype=torch.float32) * 2.0
                    > torch.as_tensor(n_clients, dtype=torch.float32))
@@ -134,11 +150,11 @@ def apply_round(ccfg: ConsensusConfig, state: ChainState, losses, submitted,
     # non-submitters keep the benign prior: no evidence is not a rejection
     hist_row = torch.where(sub, v, True).to(torch.float32)
     row = (torch.arange(ccfg.history, dtype=torch.int32, device=dev)
-           == slot)[:, None]
+           == slot[..., None])[..., None]
     return ChainState(
         stakes=state.stakes + rew,
-        verdicts=torch.where(row, hist_row[None, :], state.verdicts),
-        rewards=torch.where(row, rew[None, :], state.rewards),
+        verdicts=torch.where(row, hist_row[..., None, :], state.verdicts),
+        rewards=torch.where(row, rew[..., None, :], state.rewards),
         round=state.round + 1,
     ), v
 
@@ -161,7 +177,25 @@ def _override(value, default):
 
 
 def _f32(x, device) -> torch.Tensor:
+    """``x`` as fp32 on ``device``. A Python number is filled in on the
+    device: a host-to-device copy would make the host wait for the card."""
+    if isinstance(x, numbers.Real) and not isinstance(x, torch.Tensor):
+        return torch.full((), float(x), dtype=torch.float32, device=device)
     return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _i64(x, device) -> torch.Tensor:
+    """``x`` as int64 on ``device``, a Python number filled in there."""
+    if isinstance(x, numbers.Integral) and not isinstance(x, torch.Tensor):
+        return torch.full((), int(x), dtype=torch.int64, device=device)
+    return torch.as_tensor(x, dtype=torch.int64, device=device)
+
+
+def _take(sorted_, idx) -> torch.Tensor:
+    """``sorted_[..., idx]`` for a 0-dim (or per-row) index tensor, by a
+    gather: indexing with a 0-dim tensor reads it on the host."""
+    return torch.gather(sorted_, -1, idx[..., None].expand(
+        sorted_.shape[:-1] + (1,)))[..., 0]
 
 
 def _log2_at_least_2(n) -> float:
@@ -176,18 +210,22 @@ def t_consensus(params, ccfg: ConsensusConfig, downlink, freqs, *,
     ``params`` is a ``latency.LatencyParams``. The keyword overrides take
     per-scenario values; the config supplies the defaults. Phases:
     pre-prepare (the Eq. 16 propagation term), validate (the Eq. 16
-    validation term), two quorum waits, times the view-change factor.
+    validation term), two quorum waits, times the view-change factor. A
+    batch of scenarios takes ``downlink`` (S, M) and (S,) overrides and
+    gives (S,).
     """
     downlink = torch.as_tensor(downlink, dtype=torch.float32)
     freqs = torch.as_tensor(freqs, dtype=torch.float32,
                             device=downlink.device)
-    m = downlink.shape[0]
+    m = downlink.shape[-1]
     sb = _override(block_size_bits,
                    _override(ccfg.block_size_bits, params.block_size_bits))
+    if isinstance(sb, torch.Tensor):
+        sb = sb[..., None]  # a row's block size against its M links
     safe_down = torch.clamp(downlink, min=1.0)
-    pre = torch.max(params.xi * _log2_at_least_2(params.n_producers)
-                    * sb / safe_down)
-    val = torch.max(sb / 8.0 * params.cycles_per_val_byte / freqs)
+    pre = torch.amax(params.xi * _log2_at_least_2(params.n_producers)
+                     * sb / safe_down, dim=-1)
+    val = torch.amax(sb / 8.0 * params.cycles_per_val_byte / freqs, dim=-1)
     tq = _quorum_wait(params, ccfg, safe_down, m,
                       _override(quorum_f, ccfg.quorum_f))
     return (pre + val + 2.0 * tq) * _view_change_factor(
@@ -198,10 +236,9 @@ def _quorum_wait(params, ccfg, safe_down, m, quorum_f) -> torch.Tensor:
     """Prepare/commit phase wait: (2f)-th smallest per-link header time."""
     msg = (params.xi * _log2_at_least_2(m)
            * _f32(ccfg.header_bits, safe_down.device) / safe_down)
-    srt = torch.sort(msg).values
-    need = torch.clamp(2 * torch.as_tensor(quorum_f, dtype=torch.int64,
-                                           device=msg.device), 0, m)
-    kth = srt[torch.clamp(need - 1, 0, m - 1)]
+    srt = torch.sort(msg, dim=-1).values
+    need = torch.clamp(2 * _i64(quorum_f, msg.device), 0, m)
+    kth = _take(srt, torch.clamp(need - 1, 0, m - 1))
     return torch.where(need > 0, kth, torch.zeros_like(kth))
 
 
@@ -242,8 +279,7 @@ def t_consensus_two_tier(params, ccfg: ConsensusConfig, downlink, freqs, *,
     group = bs_groups(m, g, dev)
     sb = _override(block_size_bits,
                    _override(ccfg.block_size_bits, params.block_size_bits))
-    f = torch.as_tensor(_override(quorum_f, ccfg.quorum_f), dtype=torch.int64,
-                        device=dev)
+    f = _i64(_override(quorum_f, ccfg.quorum_f), dev)
     safe_down = torch.clamp(downlink, min=1.0)
     header = _f32(ccfg.header_bits, dev)
 
@@ -277,7 +313,7 @@ def t_consensus_two_tier(params, ccfg: ConsensusConfig, downlink, freqs, *,
     srt2 = torch.sort(msg2).values
     f2 = torch.clamp(f, max=(g - 1) // 2)
     need2 = torch.clamp(2 * f2, 0, g)
-    kth2 = srt2[torch.clamp(need2 - 1, 0, g - 1)]
+    kth2 = _take(srt2, torch.clamp(need2 - 1, 0, g - 1))
     tq2 = torch.where(need2 > 0, kth2, torch.zeros_like(kth2))
     tier2 = pre2 + val2 + 2.0 * tq2
 
@@ -316,18 +352,20 @@ def submission_losses(z, byz, base: float = 0.5,
 def chain_round(ccfg: ConsensusConfig, state: ChainState, z, byz,
                 occupancy):
     """One round's submissions (losses from the normals ``z``), verified,
-    and the chain advanced. ``occupancy`` (M,) per-BS twin counts: a BS
+    and the chain advanced (a batch of chains: every argument with a
+    leading S axis). ``occupancy`` (M,) per-BS twin counts: a BS
     with no twins submits nothing. Returns ``(new_state, verdicts,
     accept_frac)``, ``accept_frac`` the accepted share of submitters."""
     byz = torch.as_tensor(byz)
     losses = submission_losses(z, byz)
     submitted = torch.as_tensor(occupancy, dtype=torch.float32,
                                 device=losses.device) > 0.0
-    group = (bs_groups(byz.shape[0], ccfg.n_groups, losses.device)
+    group = (bs_groups(byz.shape[-1], ccfg.n_groups, losses.device)
              if ccfg.n_groups > 1 else None)
     state2, v = apply_round(ccfg, state, losses, submitted, group=group)
-    n_sub = torch.clamp(torch.sum(submitted.to(torch.float32)), min=1.0)
-    accept_frac = torch.sum(v.to(torch.float32)) / n_sub
+    n_sub = torch.clamp(torch.sum(submitted.to(torch.float32), dim=-1),
+                        min=1.0)
+    accept_frac = torch.sum(v.to(torch.float32), dim=-1) / n_sub
     return state2, v, accept_frac
 
 
@@ -335,4 +373,5 @@ def honest_stake_share(state: ChainState, byz) -> torch.Tensor:
     """Share of total stake held by non-byzantine BSs (0-dim, in [0, 1])."""
     byz = torch.as_tensor(byz, device=state.stakes.device)
     honest = torch.where(byz, 0.0, state.stakes)
-    return torch.sum(honest) / torch.clamp(torch.sum(state.stakes), min=1e-9)
+    return torch.sum(honest, dim=-1) / torch.clamp(
+        torch.sum(state.stakes, dim=-1), min=1e-9)

@@ -31,6 +31,7 @@ The twin-mesh entry points (``sharded_fault_draws``,
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import NamedTuple
 
 import torch
@@ -79,6 +80,10 @@ def sample_fault_draws(gen: torch.Generator, n: int, n_bs: int,
 
 
 def _f32(x, device) -> torch.Tensor:
+    """``x`` as fp32 on ``device``. A Python number is filled in on the
+    device: a host-to-device copy would make the host wait for the card."""
+    if isinstance(x, numbers.Real) and not isinstance(x, torch.Tensor):
+        return torch.full((), float(x), dtype=torch.float32, device=device)
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
@@ -183,9 +188,11 @@ def faulty_round_time(lp: latency.LatencyParams, fcfg: FaultConfig,
 
 
 def straggler_frac(slowdowns) -> torch.Tensor:
-    """Fraction of twins slowed this round, 0-dim fp32."""
-    hit = sharding.mask_twins(torch.as_tensor(slowdowns) > 1.0, False)
-    return sharding.twin_mean(hit.to(torch.float32))
+    """Fraction of twins slowed this round, 0-dim fp32; (S,) for a batch
+    of scenarios (S, N)."""
+    hit = sharding.mask_twins(torch.as_tensor(slowdowns) > 1.0, False,
+                              axis=-1)
+    return sharding.twin_mean(hit.to(torch.float32), axis=-1)
 
 
 def sharded_fault_draws(ts, fcfg: FaultConfig, *args, **kw):

@@ -8,9 +8,12 @@ One federated round (Eq. 17) =
 
 Total learning time (objective of Eq. 18) = T_round / (1 - theta_G).
 Every per-BS sum goes through the segment-reduce dispatch, so on the card
-Eqs. 12 and 15 each launch the hand kernel once. ``consensus=`` a
-``repro_torch.core.consensus.ConsensusConfig`` swaps the Eq. 16 constant for
-the PBFT consensus latency.
+Eqs. 12 and 15 each launch the hand kernel once. The per-twin arrays may
+carry a leading scenario axis, ``(S, N)`` with ``(S, M)`` rates: the sums
+then go through ``segment_reduce_grouped`` (one launch per run of at most
+``MAX_SEGMENTS // M`` scenarios) and the round times are ``(S,)``.
+``consensus=`` a ``repro_torch.core.consensus.ConsensusConfig`` swaps the
+Eq. 16 constant for the PBFT consensus latency.
 """
 from __future__ import annotations
 
@@ -19,7 +22,10 @@ import math
 
 import torch
 
-from repro_torch.kernels.segment_reduce import segment_count, segment_reduce
+from repro_torch.kernels.segment_reduce import (segment_count,
+                                                segment_count_grouped,
+                                                segment_reduce,
+                                                segment_reduce_grouped)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,21 +43,27 @@ class LatencyParams:
 
 
 def twin_counts(assoc, n_bs: int, *, backend: str = "auto") -> torch.Tensor:
-    """K_i: twins associated to each BS, (M,) fp32."""
+    """K_i: twins associated to each BS, (M,) fp32; (S, M) for a batch of
+    associations (S, N)."""
+    if torch.as_tensor(assoc).ndim == 2:
+        return segment_count_grouped(assoc, n_bs, backend=backend)
     return segment_count(assoc, n_bs, backend=backend)
 
 
 def bs_sum(values, assoc, n_bs: int, *, backend: str = "auto") -> torch.Tensor:
-    """Per-BS sum of per-twin ``values`` (N,), (M,) fp32."""
-    return segment_reduce(torch.as_tensor(values, dtype=torch.float32), assoc,
-                          n_bs, backend=backend)
+    """Per-BS sum of per-twin ``values`` (N,), (M,) fp32; (S, M) for
+    ``values`` and ``assoc`` of shape (S, N)."""
+    values = torch.as_tensor(values, dtype=torch.float32)
+    if torch.as_tensor(assoc).ndim == 2:
+        return segment_reduce_grouped(values, assoc, n_bs, backend=backend)
+    return segment_reduce(values, assoc, n_bs, backend=backend)
 
 
 def t_cmp(params: LatencyParams, assoc, b, data_sizes, freqs, *,
           backend: str = "auto") -> torch.Tensor:
     """Eq. 12: per-BS local twin-training time, (M,) seconds.
-    assoc/b/data_sizes (N,); freqs (M,) Hz."""
-    work = bs_sum(b * data_sizes, assoc, freqs.shape[0], backend=backend)
+    assoc/b/data_sizes (N,) or (S, N); freqs (M,) Hz."""
+    work = bs_sum(b * data_sizes, assoc, freqs.shape[-1], backend=backend)
     return work * params.cycles_per_sample / freqs
 
 
@@ -70,7 +82,8 @@ def _log2_at_least_2(n: int) -> float:
 
 def t_broadcast(params: LatencyParams, assoc, uplink, n_bs: int, *,
                 backend: str = "auto") -> torch.Tensor:
-    """Eq. 15: xi * log2(M) * K_i * |w_g| / R_i^U per BS, (M,) seconds."""
+    """Eq. 15: xi * log2(M) * K_i * |w_g| / R_i^U per BS, (M,) seconds;
+    (S, M) for associations (S, N) and uplinks (S, M)."""
     k_i = twin_counts(assoc, n_bs, backend=backend)
     return (params.xi * _log2_at_least_2(n_bs) * k_i * params.model_size_bits
             / torch.clamp(uplink, min=1.0))
@@ -116,9 +129,9 @@ def t_block_validation(params: LatencyParams, downlink, freqs) -> torch.Tensor:
     fixed consensus constant)."""
     prop = (params.xi * _log2_at_least_2(params.n_producers)
             * params.block_size_bits / torch.clamp(downlink, min=1.0))
-    val = torch.max(params.block_size_bits / 8.0 * params.cycles_per_val_byte
-                    / freqs)
-    return torch.max(prop) + val
+    val = torch.amax(params.block_size_bits / 8.0
+                     * params.cycles_per_val_byte / freqs, dim=-1)
+    return torch.amax(prop, dim=-1) + val
 
 
 def consensus_term(params: LatencyParams, downlink, freqs,
@@ -149,11 +162,13 @@ def round_time(params: LatencyParams, assoc, b, data_sizes, freqs, uplink,
                downlink, *, backend: str = "auto",
                consensus=None) -> torch.Tensor:
     """Eq. 17: max-composed system round time T (0-dim, seconds).
-    assoc/b/data_sizes (N,); freqs/uplink/downlink (M,)."""
+    assoc/b/data_sizes (N,); freqs/uplink/downlink (M,). With a leading
+    scenario axis (assoc/b/data_sizes (S, N), uplink/downlink (S, M)) the
+    Eq. 16 term applies (``consensus`` must be None) and T is (S,)."""
     cmp_ = t_cmp(params, assoc, b, data_sizes, freqs, backend=backend)
     bc = t_broadcast(params, assoc, uplink, freqs.shape[0], backend=backend)
     bv = consensus_term(params, downlink, freqs, consensus)
-    return torch.max(cmp_) + torch.max(bc) + bv
+    return torch.amax(cmp_, dim=-1) + torch.amax(bc, dim=-1) + bv
 
 
 def global_rounds(theta_g: float) -> float:

@@ -20,7 +20,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import sharding
+from repro_torch.core import latency, sharding
 from repro_torch.kernels.segment_reduce import segment_reduce, sort_groups
 
 
@@ -58,31 +58,36 @@ def migration_step(mcfg: MigrationConfig, move_u, gumbel, assoc, data_sizes,
     ``-locality * ring_distance(i, m) - load_weight * load_m / mean(load)``;
     the destination is ``argmax(logits + gumbel)`` and the twin moves where
     its uniform ``move_u`` is below ``p_move``. ``move_u`` (N,) and
-    ``gumbel`` (N, M) are the step's draws.
+    ``gumbel`` (N, M) are the step's draws. A batch of scenarios takes
+    ``assoc``, ``data_sizes`` and ``move_u`` (S, N) and ``gumbel`` (S, N, M)
+    and returns (S, N); its per-BS loads are one grouped segment sum.
     """
     assoc = torch.as_tensor(assoc)
     dev = assoc.device
-    loads = segment_reduce(torch.as_tensor(data_sizes, dtype=torch.float32,
+    loads = latency.bs_sum(torch.as_tensor(data_sizes, dtype=torch.float32,
                                            device=dev),
                            assoc, n_bs, backend=backend)
-    load_pen = loads / torch.clamp(torch.mean(loads), min=1e-12)
+    load_pen = loads / torch.clamp(torch.mean(loads, dim=-1, keepdim=True),
+                                   min=1e-12)
     # clip padding ids (== n_bs) for the gather
     ring = ring_distance(n_bs, dev)[torch.clamp(assoc.long(), 0, n_bs - 1)]
-    logits = -mcfg.locality * ring - mcfg.load_weight * load_pen[None, :]
+    logits = (-mcfg.locality * ring
+              - mcfg.load_weight * load_pen[..., None, :])
     move = sharding.localize(
         torch.as_tensor(move_u, device=dev) < mcfg.p_move, fill=False)
     g = sharding.localize(torch.as_tensor(gumbel, device=dev))
-    choice = torch.argmax(logits + g, dim=1).to(torch.int32)
+    choice = torch.argmax(logits + g, dim=-1).to(torch.int32)
     out = torch.where(move, choice, assoc.to(torch.int32))
     return sharding.mask_twins(out, n_bs)
 
 
 def migration_rate(old, new) -> torch.Tensor:
-    """Fraction of twins that changed BS, 0-dim fp32."""
+    """Fraction of twins that changed BS, 0-dim fp32; (S,) for a batch of
+    associations (S, N)."""
     old, new = torch.as_tensor(old), torch.as_tensor(new)
-    moved = sharding.mask_twins(old != new, False)
-    n = sharding.global_twin_count(old.shape[0])
-    return sharding.twin_sum(moved.to(torch.float32)) / n
+    moved = sharding.mask_twins(old != new, False, axis=-1)
+    n = sharding.global_twin_count(old.shape[-1])
+    return sharding.twin_sum(moved.to(torch.float32), axis=-1) / n
 
 
 def migration_flows(old, new, n_bs: int, *,

@@ -216,19 +216,38 @@ def twin_gather(x, idx, *, fill=0):
     vals = x[torch.where(ok, wrapped, 0)]
     shape = ok.shape + (1,) * (vals.ndim - ok.ndim)
     return torch.where(ok.reshape(shape), vals,
-                       torch.as_tensor(fill, dtype=x.dtype, device=x.device))
+                       torch.full((), fill, dtype=x.dtype, device=x.device))
 
 
 def twin_scatter_rows(x, idx, rows):
-    """Write ``rows`` (K, ...) at global twin ids ``idx`` (K,) into a copy of
-    ``x``; ids outside ``[0, N)`` are dropped. Duplicate ids are not
-    supported."""
+    """Write ``rows`` (K, ...) at global twin ids ``idx`` (K,) into ``x``, in
+    place, and return ``x``; ids outside ``[0, N)`` are dropped. Duplicate
+    ids are not supported.
+
+    Only the K addressed rows are written (``index_copy_``) and nothing is
+    read back to the host, so the call neither copies the buffer nor waits
+    for the card. A dropped id is sent to a row that no kept id writes (the
+    first one, found on the device) and writes that row's own value back;
+    when every row is kept-written it joins the first row's writer with the
+    same value. So every row is written with one value, whatever order the
+    writes land in.
+    """
     if in_scope() is not None:
         raise _sharded("twin_scatter_rows")
     x = torch.as_tensor(x)
     idx = torch.as_tensor(idx, device=x.device).to(torch.int64)
     rows = torch.as_tensor(rows, dtype=x.dtype, device=x.device)
-    ok = (idx >= 0) & (idx < x.shape[0])
-    out = x.clone()
-    out[idx[ok]] = rows[ok]
-    return out
+    n, k = x.shape[0], idx.shape[0]
+    ok = (idx >= 0) & (idx < n)
+    # owner[r]: the last kept position k writing row r (-1: none); slot n
+    # collects the dropped ids
+    owner = torch.full((n + 1,), -1, dtype=torch.int64, device=x.device)
+    owner.scatter_reduce_(0, torch.where(ok, idx, n),
+                          torch.arange(k, device=x.device), reduce="amax")
+    owner = owner[:n]
+    free = torch.argmax((owner < 0).to(torch.int8))  # first unwritten row
+    target = torch.where(ok, idx, free)
+    src = owner[target]
+    vals = torch.where((src >= 0).reshape((k,) + (1,) * (x.ndim - 1)),
+                       rows[torch.clamp(src, min=0)], x[target])
+    return x.index_copy_(0, target, vals)

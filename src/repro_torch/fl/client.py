@@ -52,6 +52,35 @@ def local_sgd(loss_fn: Callable, opt, params, xs, ys):
     return params, opt_state, torch.stack(losses)
 
 
+def local_sgd_stacked(loss_stacked: Callable, opt, params, xs, ys):
+    """:func:`local_sgd` for P twins at once, all starting from ``params``:
+    ``xs``/``ys`` (P, local_iters, batch, ...). ``loss_stacked(params,
+    batch) -> (P,)`` evaluates P models (leaves with a leading P axis) on
+    their own minibatches (``models.cnn.loss_stacked``: the convolutions
+    grouped over the P models). Each step takes one autograd pass over the
+    sum of the P losses, which gives every model exactly its own gradient,
+    then the optimizer's elementwise update on the stacked leaves: every
+    twin gets :func:`sgd_step`'s update law. Returns ``(params, opt_state,
+    losses (P, local_iters))``, leaves with a leading P axis."""
+    p = xs.shape[0]
+    keys = sorted(params)
+    params = {k: params[k].detach().expand((p,) + tuple(params[k].shape))
+              for k in keys}
+    opt_state = opt.init(params)
+    losses = []
+    for i in range(xs.shape[1]):
+        leaves = [params[k].detach().requires_grad_(True) for k in keys]
+        loss = loss_stacked(dict(zip(keys, leaves)),
+                            {"images": xs[:, i], "labels": ys[:, i]})
+        grads = torch.autograd.grad(loss.sum(), leaves)
+        with torch.no_grad():
+            params, opt_state = opt.update(
+                {k: v.detach() for k, v in zip(keys, leaves)},
+                dict(zip(keys, grads)), opt_state)
+        losses.append(loss.detach())
+    return params, opt_state, torch.stack(losses, dim=1)
+
+
 def make_local_trainer(loss_fn: Callable, lr: float = 0.05,
                        momentum: float = 0.9):
     opt = make_optimizer("sgd", lr=lr, momentum=momentum)

@@ -9,7 +9,9 @@ through the FedAvg kernel) global model -> latency bill (Eqs. 12-17, with
 stragglers and outages under ``faults`` and the PBFT block term under
 ``consensus``).
 
-Scenario rows raise ``NotImplementedError`` (ROADMAP A8). ``marl_actions`` is
+``scenario=(batch, i)`` runs scenario row ``i`` of a
+``repro_torch.core.scenario.ScenarioBatch``: its twin data sizes, its
+Dirichlet partition, and its fault and consensus axes. ``marl_actions`` is
 the MARL controller's round hook: a trained MADDPG agent's decoded
 association, batch fractions and bandwidth for the system's current state.
 """
@@ -29,7 +31,8 @@ from repro_torch.core import consensus as consensus_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core.marl.env import bs_frequencies
 from repro_torch.fl.client import make_attack_trainer, make_local_trainer
-from repro_torch.fl.partition import dirichlet_partition, iid_partition
+from repro_torch.fl.partition import (dirichlet_partition, iid_partition,
+                                      scenario_partition)
 from repro_torch.models import cnn
 from repro_torch.utils.device import default_device
 
@@ -76,33 +79,75 @@ class DTWNSystem:
     in a fixed order (``faults.sample_fault_draws``): the reference folds
     the round into a ``jax.random`` key, which torch cannot repeat.
     ``device`` defaults to ``cuda`` and raises when no card is present.
+
+    ``scenario=(batch, i)`` takes row ``i`` of a scenario batch: the twin
+    data sizes D_j are the row's population (``scenario.population_row``,
+    the realization the runners score at the same population size), the
+    dataset is carved in proportion by ``scenario_partition`` with the
+    row's label skew, the row's malicious mask and straggler/outage rates
+    override the config's (``fault_row``), and its byzantine fraction,
+    quorum and block size override ``cfg.consensus`` (``consensus_row``).
+    ``scenario_draws`` (a ``scenario.ScenarioDraws`` whose ``data_u`` and
+    ``mal_u`` hold the batch's population and malicious uniforms) replaces
+    the row's own streams, for instance with a reference run's draws.
     """
 
     def __init__(self, cfg: FLConfig, data, seed: int = 0, *,
                  init_state: Optional[dict] = None, device=None,
-                 scenario=None):
-        if scenario is not None:
-            raise NotImplementedError(
-                "not ported yet: scenario rows (ROADMAP A8)")
+                 scenario=None, scenario_draws=None):
         self.device = default_device(device)
         (self.x, self.y), (self.x_test, self.y_test), self.dataset = data
         self.cfg = cfg
         n_samples = self.x.shape[0]
-        if cfg.partition == "dirichlet":
-            self.shards = dirichlet_partition(
-                self.y, cfg.n_users,
-                alpha=0.5 if cfg.alpha is None else cfg.alpha, seed=seed)
+        # fault axis: a scenario row may override the config's rates
+        self._row_straggler: Optional[float] = None
+        self._row_outage: Optional[float] = None
+        self.malicious = np.zeros(cfg.n_users, bool)
+        if scenario is not None:
+            from repro_torch.core.scenario import (consensus_row, fault_row,
+                                                   population_row)
+
+            batch, row = scenario
+            rd = scenario_draws
+            sizes, alpha = population_row(
+                batch, row, cfg.n_users,
+                data_u=None if rd is None or rd.data_u is None
+                else rd.data_u[row])
+            self.shards = scenario_partition(n_samples, sizes, labels=self.y,
+                                             alpha=alpha, seed=seed)
+            self.data_sizes = np.asarray(sizes, np.float32)
+            mal, s_rate, o_rate = fault_row(
+                batch, row, cfg.n_users,
+                mal_u=None if rd is None or rd.mal_u is None
+                else rd.mal_u[row])
+            if mal is not None:
+                self.malicious = mal
+            self._row_straggler, self._row_outage = s_rate, o_rate
+            if cfg.consensus is not None:
+                byz, qf, blk = consensus_row(batch, row)
+                over = {k: v for k, v in (("byzantine_frac", byz),
+                                          ("quorum_f", qf),
+                                          ("block_size_bits", blk))
+                        if v is not None}
+                if over:
+                    self.cfg = cfg = dataclasses.replace(
+                        cfg, consensus=dataclasses.replace(cfg.consensus,
+                                                           **over))
         else:
-            self.shards = iid_partition(n_samples, cfg.n_users, seed=seed)
-        self.data_sizes = np.asarray([s.size for s in self.shards],
-                                     np.float32)
+            self.shards = (
+                dirichlet_partition(
+                    self.y, cfg.n_users,
+                    alpha=0.5 if cfg.alpha is None else cfg.alpha, seed=seed)
+                if cfg.partition == "dirichlet"
+                else iid_partition(n_samples, cfg.n_users, seed=seed))
+            self.data_sizes = np.asarray([s.size for s in self.shards],
+                                         np.float32)
         # the frequency table cycles past its length (the env's law)
         self.freqs = bs_frequencies(cfg).numpy()
         self.trainer = make_local_trainer(cnn.loss_fn, lr=cfg.lr)
-        # the attacker draw only when asked for: a zero fraction consumes
-        # no host RNG
-        self.malicious = np.zeros(cfg.n_users, bool)
-        if cfg.malicious_frac > 0.0:
+        # the attacker draw only when asked for (and no scenario row set
+        # the mask): a zero fraction consumes no host RNG
+        if not self.malicious.any() and cfg.malicious_frac > 0.0:
             draw_rng = np.random.RandomState(seed + 7)
             self.malicious = (draw_rng.uniform(size=cfg.n_users)
                               < cfg.malicious_frac)
@@ -253,7 +298,8 @@ class DTWNSystem:
             t_round = float(faults_mod.faulty_round_time(
                 self.lat, cfg.faults, self.round_fault_draws(), assoc_t, b_t,
                 self._sizes_dev, self._freqs_dev, up, down,
-                consensus=cfg.consensus))
+                straggler_rate=self._row_straggler,
+                outage_rate=self._row_outage, consensus=cfg.consensus))
         else:
             t_round = float(latency.round_time(
                 self.lat, assoc_t, b_t, self._sizes_dev, self._freqs_dev, up,

@@ -5,7 +5,12 @@ followed by 2x2 max-pooling, then a 512-unit fully-connected layer and a
 
 Parameters are a dict with the reference's keys and its NHWC/HWIO layout, so
 a reference parameter dict loads as it is. ``forward`` moves to NCHW/OIHW
-only inside, for ``F.conv2d``.
+only inside, for ``F.conv2d``. ``forward_stacked`` / ``loss_stacked`` run P
+models at once (leaves with a leading P axis, one minibatch each): the
+convolutions become grouped convolutions over the P models, the dense
+layers batched products, so one autograd pass over the sum of the P losses
+gives every model its own gradient (the streamed FL round's local SGD,
+``repro_torch.fl.client.local_sgd_stacked``).
 """
 from __future__ import annotations
 
@@ -60,3 +65,37 @@ def loss_fn(params, batch):
 def accuracy(params, batch):
     logits = forward(params, batch["images"])
     return torch.mean((torch.argmax(logits, -1) == batch["labels"]).float())
+
+
+def _conv_stacked(x, w, b):
+    """P 'SAME' 5x5 convolutions as one grouped convolution: x (B, P*Cin,
+    H, W), w (P, 5, 5, Cin, Cout) HWIO, b (P, Cout) -> (B, P*Cout, H, W)."""
+    p, kh, kw, cin, cout = w.shape
+    wt = w.permute(0, 4, 3, 1, 2).reshape(p * cout, cin, kh, kw)
+    return F.conv2d(x, wt, b.reshape(-1), padding=2, groups=p)
+
+
+def forward_stacked(params, images):
+    """P models on their own images: leaves (P, ...), images (P, B, 32, 32,
+    3) -> logits (P, B, 10)."""
+    p, bsz = images.shape[:2]
+    x = images.permute(1, 0, 4, 2, 3).reshape(bsz, p * 3, 32, 32)
+    x = F.max_pool2d(F.relu(_conv_stacked(x, params["conv1_w"],
+                                          params["conv1_b"])), 2)
+    x = F.max_pool2d(F.relu(_conv_stacked(x, params["conv2_w"],
+                                          params["conv2_b"])), 2)
+    # (B, P*64, 8, 8) -> each model's NHWC flatten, (P, B, 4096)
+    x = x.reshape(bsz, p, 64, 8, 8).permute(1, 0, 3, 4, 2).reshape(p, bsz, -1)
+    x = F.relu(torch.bmm(x, params["fc1_w"]) + params["fc1_b"][:, None])
+    return torch.bmm(x, params["fc2_w"]) + params["fc2_b"][:, None]
+
+
+def loss_stacked(params, batch):
+    """(P,) mean cross-entropies of P models on their own minibatches
+    (``batch`` leaves (P, B, ...))."""
+    logits = forward_stacked(params, batch["images"])
+    p, b = logits.shape[:2]
+    nll = F.cross_entropy(logits.reshape(p * b, -1),
+                          batch["labels"].reshape(-1).long(),
+                          reduction="none")
+    return nll.reshape(p, b).mean(dim=1)

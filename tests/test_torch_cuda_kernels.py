@@ -82,6 +82,111 @@ def test_segment_kernel_gradient_matches_plain(cuda, n, k, m):
     assert dropped.any() and not v.grad[dropped].any()
 
 
+def test_segment_grouped_at_the_scenario_runners_shape(cuda):
+    """The scenario runners' grouped call: S=256 scenarios of N=100 twins
+    over M=5 BSs, 44 scenarios a launch (6 launches), against the plain
+    version row by row."""
+    s, n, m = 256, 100, 5
+    gen = torch.Generator().manual_seed(11)
+    vals = torch.rand((s, n), generator=gen).to(cuda) * 1000
+    ids = torch.randint(0, m + 1, (s, n), generator=gen,
+                        dtype=torch.int32).to(cuda)  # m: a padding row
+    before = sr.KERNEL.launches
+    out = sr.segment_reduce_grouped(vals, ids, m)
+    assert sr.KERNEL.launches == before + -(-s // (sr.MAX_SEGMENTS // m))
+    plain = torch.stack([sr._seg_tiled_plain(vals[i][:, None], ids[i], m)[:, 0]
+                         for i in range(s)])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5)
+
+
+def test_segment_kernel_at_the_capacity_axis_eq4_shape(cuda):
+    """The streamed round's largest Eq. 4 call: the CNN's ``fc1_w`` over a
+    capacity of N=100 twins (K=2,097,152, M=5), 10 rows weighted and
+    associated, the rest on the padding id."""
+    n, k, m = 100, 2_097_152, 5
+    gen = torch.Generator().manual_seed(12)
+    vals = torch.randn((n, k), generator=gen).to(cuda)
+    ids = torch.full((n,), m, dtype=torch.int32)
+    ids[torch.randperm(n, generator=gen)[:10]] = torch.randint(
+        0, m, (10,), generator=gen, dtype=torch.int32)
+    ids = ids.to(cuda)
+    out = sr.segment_reduce_kernel(vals, ids, m)
+    again = sr.segment_reduce_kernel(vals, ids, m)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, sr._seg_tiled_plain(vals, ids, m),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, again)
+
+
+def test_twin_scatter_rows_is_in_place_and_sync_free(cuda):
+    """The streamed round's row scatter: in place, no copy of the buffer,
+    nothing read back to the host (dropped ids included)."""
+    from repro_torch.core import sharding
+
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn((100, 3, 4), generator=gen).to(cuda)
+    want = x.clone()
+    idx = torch.tensor([7, -1, 42, 100, 3, -1], device=cuda)
+    rows = torch.randn((6, 3, 4), generator=gen).to(cuda)
+    ptr = x.data_ptr()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = sharding.twin_scatter_rows(x, idx, rows)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got is x and x.data_ptr() == ptr
+    for j, r in ((7, 0), (42, 2), (3, 4)):
+        want[j] = rows[r]
+    torch.testing.assert_close(x, want, rtol=0, atol=0)
+
+
+def test_serve_rounds_overlap_is_sync_free(cuda):
+    """Two overlapped streamed rounds with churn, every workload axis and
+    the tiny model's FL on the card raise nothing under the sync debug
+    mode, and equal two blocking rounds bit for bit."""
+    from repro_torch.core import scenario, serve
+    from repro_torch.core.consensus import ConsensusConfig
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.marl.env import EnvConfig
+    from repro_torch.core.migration import MigrationConfig
+    from repro_torch.data import cifar10
+    from repro_torch.fl import stream
+
+    cfg = EnvConfig(n_twins=64, migration=MigrationConfig(p_move=0.1),
+                    faults=FaultConfig(),
+                    consensus=ConsensusConfig(quorum_f=1, byzantine_frac=0.2))
+    fcfg = stream.FLServeConfig(model="tiny", participants=6, local_iters=2,
+                                batch_size=8)
+    scfg = serve.ServeConfig(capacity=64, join_rate=0.05, leave_rate=0.05,
+                             fl=fcfg)
+    data = cifar10.load(max_train=1024, max_test=256)
+    batch = scenario.make_batch(0, 1)
+    row = scenario.knob_row(scenario.stream_knobs(
+        scenario.batch_to(batch, cuda), fcfg=cfg.faults, ccfg=cfg.consensus),
+        0)
+    seed = int(batch.seed[0])
+    plan = stream.stream_fl_plan(fcfg, stream.cyclic_shards(1024, 64, 64), 2)
+    plan = stream.FLPlan(*(x.to(cuda) for x in plan))
+    draws = serve.stream_draws(cfg, scfg, seed, 2, cuda)
+    out = {}
+    for overlap in (True, False):
+        st = serve.serve_init(cfg, scfg, row, seed=seed, device=cuda)
+        st = st._replace(fl=stream.fl_init(
+            fcfg, torch.Generator().manual_seed(1), data, st.active))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error" if overlap else 0)
+        try:
+            _, m = serve.serve_rounds(cfg, scfg, st, draws, row,
+                                      overlap=overlap, plan=plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[overlap] = serve.stack_metrics(m)
+    for k in out[True]:
+        assert (out[True][k] == out[False][k]).all(), k
+
+
 @pytest.mark.parametrize("g,n,m", [(64, 100, 5), (320, 100, 5),
                                    (7, 50, 223)])
 def test_segment_kernel_grouped_matches_plain(cuda, g, n, m):

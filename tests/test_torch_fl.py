@@ -244,11 +244,59 @@ def test_dtwn_rounds_match_reference(use_kernel, data, monkeypatch):
                                    np.asarray(jsys.params[k]), atol=1e-4)
 
 
-def test_dtwn_rejects_unported_options(data):
-    """Only scenario rows (ROADMAP A8) are left unported."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TSystem(TConfig(n_users=4, n_bs=2), data, device=CPU,
-                scenario=(None, 0))
+def test_dtwn_rejects_unported_options(data, monkeypatch):
+    """Scenario rows (ROADMAP A8) are ported: ``DTWNSystem(scenario=(batch,
+    i))`` takes the row's data sizes (rtol 1e-6), shards, malicious mask,
+    straggler/outage rates and consensus overrides as the reference does,
+    given the reference's population and malicious uniforms, and its first
+    round (the port fed the reference's fault draws) bills the same round
+    and PBFT times (rtol 1e-5) with the same participants."""
+    from repro.core import scenario as j_scn
+    from repro_torch import bridge
+    from repro_torch.core import scenario as t_scn
+
+    jb = j_scn.make_batch(jax.random.PRNGKey(4), 3, malicious=(0.2, 0.5),
+                          straggler=(0.1, 0.4), outage=(0.05, 0.3),
+                          byzantine=(0.0, 0.4), quorum=(0.0, 2.0),
+                          block_size=(1e6, 8e6))
+    tb = bridge.scenario_batch_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jb))
+    n, row = 12, 1
+    ks = jax.random.split(jb.key[row], 4)
+    draws = t_scn.ScenarioDraws(
+        data_u=torch.tensor(np.stack([np.asarray(
+            jax.random.uniform(ks[0], (n,)))] * 3)),
+        mal_u=torch.tensor(np.stack([np.asarray(jax.random.uniform(
+            jax.random.fold_in(jb.key[row], 7), (n,)))] * 3)))
+    kw = dict(n_users=n, n_bs=3, local_iters=1, batch_size=16)
+    jsys = JSystem(JConfig(**kw, faults=JFaults(), consensus=JCons()), data,
+                   seed=0, scenario=(jb, row))
+    init = state_from_numpy({k: np.asarray(v) for k, v in jsys.params.items()},
+                            np.asarray(jsys.dist), np.asarray(jsys.h_up),
+                            np.asarray(jsys.h_down), CPU)
+    tsys = TSystem(TConfig(**kw, faults=t_faults.FaultConfig(),
+                           consensus=TCons()), data, seed=0,
+                   init_state=init, device=CPU, scenario=(tb, row),
+                   scenario_draws=draws)
+    np.testing.assert_allclose(tsys.data_sizes, jsys.data_sizes, rtol=1e-6)
+    assert len(tsys.shards) == len(jsys.shards) == n
+    for a, b in zip(tsys.shards, jsys.shards):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tsys.malicious, jsys.malicious)
+    assert 0 < tsys.malicious.sum() < n
+    assert (tsys._row_straggler, tsys._row_outage) == pytest.approx(
+        (jsys._row_straggler, jsys._row_outage), rel=1e-7)
+    for f in ("byzantine_frac", "quorum_f", "block_size_bits"):
+        assert getattr(tsys.cfg.consensus, f) == pytest.approx(
+            getattr(jsys.cfg.consensus, f), rel=1e-7), f
+    monkeypatch.setattr(tsys, "round_fault_draws", lambda: _ref_fault_draws(
+        jax.random.fold_in(jsys._fault_key, tsys._round), n, 3))
+    assoc = np.arange(n) % 3
+    ji = jsys.run_round(assoc, participating_users=4)
+    ti = tsys.run_round(assoc, participating_users=4)
+    assert ti["chosen"] == ji["chosen"]
+    for key in ("round_time_s", "consensus_time_s"):
+        np.testing.assert_allclose(ti[key], ji[key], rtol=1e-5, err_msg=key)
 
 
 def _ref_fault_draws(key, n, m):

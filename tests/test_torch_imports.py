@@ -81,6 +81,47 @@ def test_entry_points_raise_without_cuda():
     agent = maddpg_init(cfgs[0], cfgs[1], torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DTWNSystem(FLConfig(n_users=4, n_bs=2), data).marl_actions(agent)
+    # the scenario runners, the serve loop's state and draws, the CLI
+    from repro_torch.core import scenario, serve
+    from repro_torch.core.consensus import ConsensusConfig
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.migration import MigrationConfig
+    from repro_torch.fl import stream
+    from repro_torch.launch import serve_dtwn
+
+    env_cfg, batch = cfgs[0], scenario.make_batch(0, 2)
+    runners = (
+        lambda **kw: scenario.run_baselines(env_cfg, batch, **kw),
+        lambda **kw: scenario.run_faults(env_cfg, FaultConfig(), batch, 2,
+                                         **kw),
+        lambda **kw: scenario.run_migration(env_cfg, MigrationConfig(),
+                                            batch, 2, **kw),
+        lambda **kw: scenario.run_consensus(env_cfg, ConsensusConfig(),
+                                            batch, 2, **kw),
+        lambda **kw: scenario.run_policy(env_cfg, agent, batch, 2, **kw))
+    for run in runners:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(device="cuda")
+    scfg = serve.ServeConfig(capacity=4, join_rate=0.1)
+    row = scenario.knob_row(scenario.stream_knobs(batch), 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.serve_init(env_cfg, scfg, row)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.stream_draws(env_cfg, scfg, 0, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream.fl_init(stream.FLServeConfig(model="tiny"),
+                       torch.Generator(), data, np.ones(4, bool))
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_dtwn.main(["--capacity", "8", "--rounds", "1", *argv])
+    # on the CPU on purpose, the serve loop runs
+    st = serve.serve_init(env_cfg, scfg, row, device="cpu")
+    _, m = serve.serve_rounds(env_cfg, scfg, st,
+                              serve.stream_draws(env_cfg, scfg, 0, 2, "cpu"),
+                              row)
+    assert m["round_time"].device.type == "cpu"
 
 
 def test_kernel_wrappers_take_plain_version_only_for_cpu_tensors():
