@@ -66,6 +66,7 @@ line, then ``{"ok": true, "device": {...}}`` as the last line.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 import json
 import math
@@ -1672,6 +1673,7 @@ SCENARIOS = 256          # the runners' batch at the paper's width
 POLICY_SCENARIOS = 32    # run_policy loops over its scenarios
 SCENARIO_ROUNDS = 10
 SCENARIO_CHECK = 8       # scenarios checked GPU against CPU
+SCENARIO_REPS = 5        # timed calls of each mode (the policy: 1)
 SERVE_ROUNDS = 6
 SERVE_RTOL = 1e-5        # round times GPU against CPU
 FL_LOSS_RTOL = 1e-4      # the streamed FL loss GPU against CPU
@@ -1710,7 +1712,8 @@ def phase_scenarios(torch, sr, kernels, marl) -> dict:
     twins, 5 BSs) on a ``make_batch`` of 256 scenarios (the policy's
     rollouts on 32, with the trained agent), 10 rounds or steps each. Each
     runner is run once to warm up, then timed with every count set to 0
-    just before and read just after; its segment launches are held to
+    just before and read just after, with its draws passed in and with its
+    default draws, alternated; its segment launches are held to
     ``scenario_launches``. Then 8 scenarios of each on the GPU and the CPU
     from the same draws."""
     from repro_torch.core import association as assoc_mod
@@ -1726,31 +1729,77 @@ def phase_scenarios(torch, sr, kernels, marl) -> dict:
                                      for x in batch))
         draws = scenario.scenario_draws(b, cfg, parts, SCENARIO_ROUNDS,
                                         "cuda")
-        run(b, draws, "cuda")  # warm up
-        _reset(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run(b, draws, "cuda")
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        launches = sr.KERNEL.launches
         want = scenario.scenario_launches(name, cfg, s, SCENARIO_ROUNDS)
+
+        def timed(fn):
+            _reset(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, (time.perf_counter() - t0) * 1e3, sr.KERNEL.launches
+
+        # the call with its draws passed in, and the default call (its
+        # draws made on the card inside the span), alternated after a
+        # warm-up of each; the draws alone beside them
+        modes = {"given": functools.partial(run, b, draws, "cuda"),
+                 "default": functools.partial(run, b, None, "cuda"),
+                 "draws": functools.partial(scenario.scenario_draws, b, cfg,
+                                            parts, SCENARIO_ROUNDS, "cuda")}
+        modes["given"](), modes["default"]()
+        walls = {mode: [] for mode in modes}
+        for _ in range(SCENARIO_REPS if name != "policy" else 1):
+            for mode, fn in modes.items():
+                res_m, wall_m, launches = timed(fn)
+                walls[mode].append(wall_m)
+                if mode != "draws" and launches != want:
+                    raise AssertionError(
+                        f"run_{name} ({mode} draws) launched the segment "
+                        f"kernel {launches} times, not {want}")
+                if mode == "given":
+                    res, got = res_m, launches
+        wall, wall_d, wall_x = (statistics.median(walls[k])
+                                for k in ("given", "default", "draws"))
         for k, v in res.items():
             if v.shape[0] != s or not bool(torch.isfinite(v).all()):
                 raise AssertionError(f"run_{name} {k}: shape "
                                      f"{tuple(v.shape)} or not finite")
         head = {k: round(float(v.float().mean()), 4) for k, v in res.items()}
-        log(f"[scenarios] run_{name}: S={s}, wall {wall:.1f} ms "
-            f"({1e3 * s / wall:.1f} scenarios/s), segment launches "
-            f"{launches} (the code makes {want}); means {json.dumps(head)}")
-        if launches != want:
-            raise AssertionError(f"run_{name} launched the segment kernel "
-                                 f"{launches} times, not {want}")
-        out[name] = {"wall_ms": wall, "scenarios": s, "launches": launches,
-                     "scenarios_per_s": 1e3 * s / wall}
+        each = {k: [round(x, 2) for x in v] for k, v in walls.items()}
+        log(f"[scenarios] run_{name}: S={s}, draws passed in: wall "
+            f"{wall:.1f} ms ({1e3 * s / wall:.1f} scenarios/s); default "
+            f"draws made in the call: {wall_d:.1f} ms "
+            f"({1e3 * s / wall_d:.1f} scenarios/s); the draws alone "
+            f"{wall_x:.2f} ms (medians of {len(walls['given'])}: "
+            f"{json.dumps(each)}); "
+            f"segment launches {got} a call (the code makes {want}); "
+            f"means {json.dumps(head)}")
+        out[name] = {"wall_ms": wall, "scenarios": s, "launches": got,
+                     "scenarios_per_s": 1e3 * s / wall,
+                     "default_wall_ms": wall_d,
+                     "default_scenarios_per_s": 1e3 * s / wall_d,
+                     "draws_ms": wall_x}
     # GPU against CPU on 8 scenarios, from the same draws (made on the CPU)
     b8 = scenario.ScenarioBatch(*(None if x is None else x[:SCENARIO_CHECK]
                                   for x in batch))
+    parts = ("realization", "random", "rollout", "migration", "faults",
+             "chain")
+    dc, dh = (scenario.scenario_draws(b8, cfg, parts, SCENARIO_ROUNDS, dev)
+              for dev in ("cuda", "cpu"))
+    exact = ("data_u", "dist_u", "rand_assoc", "move_u", "slow_u",
+             "outage_u")
+    for name in dc._fields:
+        got, want = getattr(dc, name), getattr(dh, name)
+        if name == "steps":
+            got, want = got.up, want.up
+        if name in exact:
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"default draw {name} differs on the "
+                                     f"GPU and the CPU")
+        elif got is not None:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+    log("[scenarios_gpu_vs_cpu] default draws: integer and uniform fields "
+        "equal on the GPU and the CPU, the others within rtol 1e-6")
     worst = 0.0
     for name, run, parts, _ in _scenario_runs(cfg, marl["ts"].agent):
         d = scenario.scenario_draws(b8, cfg, parts, SCENARIO_ROUNDS, "cpu")
@@ -1813,10 +1862,15 @@ def _serve_setup(torch, data, device, *, fl=True, policy=None,
             fcfg, iid_partition(data[0][0].shape[0], cfg.n_twins, seed=0),
             n_rounds)
         plan = stream.FLPlan(*(x.to(device) for x in plan))
-    draws = serve.stream_draws(cfg, scfg, seed, n_rounds, device)
+    # made on the CPU and copied, so a GPU and a CPU run read the same bits
+    draws = serve.RoundDraws(*(
+        None if x is None else x.to(device)
+        for x in serve.stream_draws(cfg, scfg, seed, n_rounds, "cpu")))
+    init = scenario.ScenarioDraws(**scenario.make_draws(
+        cfg, seed, ("realization", "outage_init", "byzantine"), device="cpu"))
 
     def fresh():
-        st = serve.serve_init(cfg, scfg, row, seed=seed, device=device)
+        st = serve.serve_init(cfg, scfg, row, draws=init, device=device)
         if fl:
             st = st._replace(fl=stream.fl_init(
                 fcfg, torch.Generator().manual_seed(0), data, st.active))

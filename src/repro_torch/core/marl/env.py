@@ -144,25 +144,42 @@ def sample_reset_draws(gen: torch.Generator, cfg: EnvConfig, *,
                       data_u=data_u)
 
 
+def _normal(gen, shape):
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def _gumbel(gen, shape):
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(torch.clamp(_uniform(gen, shape), min=tiny)))
+
+
+_SAMPLERS = {"uniform": _uniform, "exponential": _exponential,
+             "normal": _normal, "gumbel": _gumbel}
+
+
+def step_fields(cfg: EnvConfig):
+    """The ``(name, law, shape)`` of each :class:`StepDraws` field the
+    config uses, in the field order; the law is ``"uniform"``,
+    ``"exponential"`` (Exp(1)), ``"normal"`` or ``"gumbel"``."""
+    n, m, c = cfg.n_twins, cfg.n_bs, cfg.wl.n_subchannels
+    f = [("jitter", "normal", (m,)), ("up", "exponential", (m, c)),
+         ("down", "exponential", (m, c))]
+    if cfg.migration is not None:
+        f += [("move_u", "uniform", (n,)), ("gumbel", "gumbel", (n, m))]
+    if cfg.faults is not None:
+        f += [("slow_u", "uniform", (n,)), ("slow_exp", "exponential", (n,)),
+              ("outage_u", "uniform", (m,))]
+    if cfg.consensus is not None:
+        f += [("byz_u", "uniform", (m,)), ("sub_z", "normal", (m,))]
+    return f
+
+
 def sample_step_draws(gen: torch.Generator, cfg: EnvConfig) -> StepDraws:
     """One step's draws from ``gen`` on its device, in the field order of
-    :class:`StepDraws`, drawing only the fields the config uses."""
-    n, m, c = cfg.n_twins, cfg.n_bs, cfg.wl.n_subchannels
-    d = {"jitter": torch.randn((m,), generator=gen, device=gen.device),
-         "up": _exponential(gen, (m, c)), "down": _exponential(gen, (m, c))}
-    if cfg.migration is not None:
-        d["move_u"] = _uniform(gen, (n,))
-        tiny = torch.finfo(torch.float32).tiny
-        d["gumbel"] = -torch.log(-torch.log(
-            torch.clamp(_uniform(gen, (n, m)), min=tiny)))
-    if cfg.faults is not None:
-        d["slow_u"] = _uniform(gen, (n,))
-        d["slow_exp"] = _exponential(gen, (n,))
-        d["outage_u"] = _uniform(gen, (m,))
-    if cfg.consensus is not None:
-        d["byz_u"] = _uniform(gen, (m,))
-        d["sub_z"] = torch.randn((m,), generator=gen, device=gen.device)
-    return StepDraws(**d)
+    :class:`StepDraws`, drawing only the fields the config uses
+    (:func:`step_fields`)."""
+    return StepDraws(**{name: _SAMPLERS[law](gen, shape)
+                        for name, law, shape in step_fields(cfg)})
 
 
 def bs_frequencies(cfg, device=None) -> torch.Tensor:

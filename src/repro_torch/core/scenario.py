@@ -17,14 +17,16 @@ tensors; the chains of :func:`run_consensus` advance together. The body of
 :func:`run_policy` (``env_step`` rollouts) loops over the scenarios.
 
 torch cannot repeat ``jax.random``, so every draw is an argument: a
-:class:`ScenarioDraws`. By default it is made on the CPU and moved to the
-device, row by row, from generators seeded by the row's ``seed`` and a
-stream number that mirrors the reference's key folds (0 the realization,
-1 the random association, 2 the rollout, 3 migration, 4 the outage init,
-5 the fault rounds, 6 the byzantine mask, 7 the malicious mask, 8 the chain
-submissions; the serve loop adds 11 churn and 12 dynamics). Every runner
-and the serve loop read a row's draws from the same streams, so they score
-the same realization. Per-round streams are drawn round after round, so a
+:class:`ScenarioDraws`. By default it is made on the run's device, for the
+whole batch at once, by a counter-based :class:`RowStream`: a hash of the
+row's ``seed``, a stream number that mirrors the reference's key folds (0
+the realization, 1 the random association, 2 the rollout, 3 migration, 4
+the outage init, 5 the fault rounds, 6 the byzantine mask, 7 the malicious
+mask, 8 the chain submissions; the serve loop adds 11 churn and 12
+dynamics) and the draw's index. As with the reference's per-row keys, a
+row's draws do not depend on the batch around it, and every runner and the
+serve loop read a row's draws from the same streams, so they score the
+same realization. Per-round streams are drawn round after round, so a
 shorter run draws a prefix of a longer one.
 
 The twin-mesh runners (``run_*_sharded``) are ROADMAP A10.
@@ -77,25 +79,6 @@ class ScenarioBatch(NamedTuple):
     block_size: Optional[torch.Tensor] = None
 
 
-def row_generator(seed, fold: int) -> torch.Generator:
-    """The CPU generator of stream ``fold`` of the scenario row ``seed``."""
-    return torch.Generator().manual_seed(int(seed) * 16 + fold)
-
-
-def _uniform(gen, shape, lo=0.0, hi=1.0):
-    return lo + torch.rand(shape, generator=gen) * (hi - lo)
-
-
-def _exponential(gen, shape):
-    return torch.empty(shape).exponential_(generator=gen)
-
-
-def _gumbel(gen, shape):
-    tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(torch.clamp(torch.rand(shape, generator=gen),
-                                             min=tiny)))
-
-
 def make_batch(seed: int, n_scenarios: int, *, data_min=(100.0, 400.0),
                data_max=(500.0, 1500.0), skew=(1.0, 4.0),
                alpha=(0.1, 10.0), straggler=None, outage=None,
@@ -108,21 +91,24 @@ def make_batch(seed: int, n_scenarios: int, *, data_min=(100.0, 400.0),
     population axes come from stream 0 of ``seed``, alpha from stream 4 and
     each optional axis from its own stream (5-10), so adding an axis never
     changes the others."""
-    gen = row_generator(seed, 0)
     s = n_scenarios
-    seeds = torch.randint(0, 2**31, (s,), generator=gen, dtype=torch.int64)
-    dmin = _uniform(gen, (s,), *data_min)
-    dmax = _uniform(gen, (s,), *data_max)
-    skw = _uniform(gen, (s,), *skew)
+    seeds, dmin, dmax, skw = RowStream(seed, 0, "cpu").draw(
+        [(2**31, (s,)), ("uniform", (s,)), ("uniform", (s,)),
+         ("uniform", (s,))])
+
+    def span(u, lo, hi):
+        return lo + u * (hi - lo)
 
     def axis(stream, rng):
         return (None if rng is None else
-                _uniform(row_generator(seed, stream), (s,), *rng))
+                span(RowStream(seed, stream, "cpu").draw(
+                    [("uniform", (s,))])[0], *rng))
 
     log_a = axis(4, None if alpha is None else (math.log(alpha[0]),
                                                 math.log(alpha[1])))
     return ScenarioBatch(
-        seed=seeds, data_min=dmin, data_max=dmax, skew=skw,
+        seed=seeds, data_min=span(dmin, *data_min),
+        data_max=span(dmax, *data_max), skew=span(skw, *skew),
         alpha=None if log_a is None else torch.exp(log_a),
         straggler=axis(5, straggler), outage=axis(6, outage),
         malicious=axis(7, malicious), byzantine=axis(8, byzantine),
@@ -130,8 +116,8 @@ def make_batch(seed: int, n_scenarios: int, *, data_min=(100.0, 400.0),
 
 
 def batch_to(batch: ScenarioBatch, device) -> ScenarioBatch:
-    """The batch's float axes as fp32 tensors on ``device`` (the seeds stay
-    on the CPU: they seed host generators)."""
+    """The batch's float axes as fp32 tensors on ``device`` (the int64
+    seeds stay where they are: a :class:`RowStream` moves them)."""
     return ScenarioBatch(*(
         x if x is None or name == "seed"
         else torch.as_tensor(x, dtype=torch.float32).to(device)
@@ -141,6 +127,82 @@ def batch_to(batch: ScenarioBatch, device) -> ScenarioBatch:
 # ---------------------------------------------------------------------------
 # draws
 # ---------------------------------------------------------------------------
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer hash (two xor-shift-multiply rounds) of int64
+    tensors holding values below 2**32; every product stays below 2**63."""
+    x = x ^ (x >> 16)
+    x = (x * 0x45D9F3B) & _M32
+    x = x ^ (x >> 16)
+    x = (x * 0x45D9F3B) & _M32
+    return x ^ (x >> 16)
+
+
+def _unit(words):
+    """fp32 uniforms in (0, 1) from 32-bit words: 24 bits, centred in their
+    cell, so neither end is reached."""
+    return ((words >> 8).to(torch.float32) + 0.5) * 2.0 ** -24
+
+
+class RowStream:
+    """Stream ``fold`` of the scenario rows ``seeds`` ((S,) or 0-dim int64),
+    drawn on ``device``.
+
+    Word k of a row is a hash of (row seed, fold, k), so a row's draws
+    depend on neither the batch it sits in nor the device (integer and
+    uniform draws are the same bits on the CPU and a card), a batch draws
+    all its rows in one pass, and each :meth:`draw` continues the row's
+    stream where the last one stopped.
+    """
+
+    def __init__(self, seeds, fold: int, device):
+        s = torch.as_tensor(seeds, dtype=torch.int64).to(device)
+        k1 = _mix32((s & _M32) ^ _mix32(((s >> 32) & _M32) ^ fold))
+        self.shape = tuple(s.shape)
+        self.k1 = k1[..., None]
+        self.k2 = _mix32(k1 ^ 0x5BD1E995)[..., None]
+        self.offset = 0
+
+    def _words(self, n: int):
+        c = torch.arange(self.offset, self.offset + n, device=self.k1.device)
+        self.offset += n
+        return _mix32(_mix32((c & _M32) ^ self.k1)
+                      ^ (((c >> 32) + self.k2) & _M32))
+
+    def draw(self, fields, n_rounds: Optional[int] = None):
+        """One tensor per ``(kind, shape)`` field, from consecutive words:
+        kind ``"uniform"``, ``"exponential"`` (Exp(1)), ``"gumbel"``,
+        ``"normal"`` (Box-Muller, two words a value) or an int m (int64 in
+        [0, m)). Each has the seeds' shape + ``shape``; with ``n_rounds``
+        every round draws all fields in turn and they gain a round axis
+        after the seeds' (a shorter run draws a prefix of a longer one)."""
+        sizes = [math.prod(shape) * (2 if kind == "normal" else 1)
+                 for kind, shape in fields]
+        r = 1 if n_rounds is None else n_rounds
+        words = self._words(r * sum(sizes)).reshape(
+            self.shape + (r, sum(sizes)))
+        out = []
+        for (kind, shape), w in zip(fields, torch.split(words, sizes, -1)):
+            if isinstance(kind, int):
+                v = w % kind
+            elif kind == "normal":
+                u1, u2 = _unit(w).chunk(2, dim=-1)
+                v = (torch.sqrt(-2.0 * torch.log(u1))
+                     * torch.cos((2.0 * math.pi) * u2))
+            else:
+                v = _unit(w)
+                if kind in ("exponential", "gumbel"):
+                    v = -torch.log(v)
+                if kind == "gumbel":
+                    v = -torch.log(v)
+            v = v.reshape(v.shape[:-1] + tuple(shape))
+            out.append(v if n_rounds is not None
+                       else v.select(len(self.shape), 0))
+        return tuple(out)
 
 
 class ScenarioDraws(NamedTuple):
@@ -173,57 +235,54 @@ class ScenarioDraws(NamedTuple):
     sub_z: Optional[torch.Tensor] = None
 
 
-def draw_rounds(gen, n_rounds, draw):
-    """``draw(gen)`` (a tuple of tensors) once a round, round after round,
-    each field stacked on a leading round axis: a shorter run draws a
-    prefix of a longer one."""
-    out = [draw(gen) for _ in range(n_rounds)]
-    return tuple(torch.stack(x) for x in zip(*out))
+def draw_fields(stream: RowStream, fields, n_rounds=None) -> dict:
+    """:meth:`RowStream.draw` of named ``(name, kind, shape)`` fields, as a
+    dict."""
+    return dict(zip((f[0] for f in fields),
+                    stream.draw([f[1:] for f in fields], n_rounds)))
 
 
-def row_draws(cfg: EnvConfig, seed, parts, n_rounds: int = 0) -> dict:
-    """One scenario row's draws of the named ``parts`` on the CPU, as a dict
-    of :class:`ScenarioDraws` fields without the scenario axis. The parts,
-    each from its own stream: ``"realization"``, ``"random"``,
+def make_draws(cfg: EnvConfig, seeds, parts, n_rounds: int = 0,
+               device=None) -> dict:
+    """The draws of the named ``parts`` for the scenario rows ``seeds``
+    ((S,) or 0-dim), made on ``device`` (default ``cuda``), as a dict of
+    :class:`ScenarioDraws` fields with the seeds' leading shape. The parts,
+    each from its own :class:`RowStream`: ``"realization"``, ``"random"``,
     ``"rollout"``, ``"migration"``, ``"outage_init"``, ``"faults"``,
     ``"byzantine"``, ``"malicious"``, ``"chain"``; the per-round ones draw
     ``n_rounds`` rounds."""
-    n, m = cfg.n_twins, cfg.n_bs
+    n, m, c = cfg.n_twins, cfg.n_bs, cfg.wl.n_subchannels
+    dev = default_device(device)
+    per_row = {
+        "realization": (FOLD_REALIZATION, [
+            ("data_u", "uniform", (n,)), ("up", "exponential", (m, c)),
+            ("down", "exponential", (m, c)), ("dist_u", "uniform", (m,))]),
+        "random": (FOLD_RANDOM, [("rand_assoc", m, (n,))]),
+        "outage_init": (FOLD_OUTAGE_INIT, [("outage0_u", "uniform", (m,))]),
+        "byzantine": (FOLD_BYZANTINE, [("byz_u", "uniform", (m,))]),
+        "malicious": (FOLD_MALICIOUS, [("mal_u", "uniform", (n,))]),
+    }
+    per_round = {
+        "migration": (FOLD_MIGRATION, [("move_u", "uniform", (n,)),
+                                       ("gumbel", "gumbel", (n, m))]),
+        "faults": (FOLD_FAULTS, [("slow_u", "uniform", (n,)),
+                                 ("slow_exp", "exponential", (n,)),
+                                 ("outage_u", "uniform", (m,))]),
+        "chain": (FOLD_CHAIN, [("sub_z", "normal", (m,))]),
+    }
     d = {}
-    if "realization" in parts:
-        rd = env_mod.sample_reset_draws(row_generator(seed, FOLD_REALIZATION),
-                                        cfg)
-        d.update(data_u=rd.data_u, up=rd.up, down=rd.down, dist_u=rd.dist_u)
-    if "random" in parts:
-        d["rand_assoc"] = torch.randint(
-            0, m, (n,), generator=row_generator(seed, FOLD_RANDOM))
-    if "rollout" in parts:
-        g = row_generator(seed, FOLD_ROLLOUT)
-        steps = [env_mod.sample_step_draws(g, cfg) for _ in range(n_rounds)]
-        d["steps"] = StepDraws(*(None if f[0] is None else torch.stack(f)
-                                 for f in zip(*steps)))
-    if "migration" in parts:
-        d["move_u"], d["gumbel"] = draw_rounds(
-            row_generator(seed, FOLD_MIGRATION), n_rounds,
-            lambda g: (torch.rand((n,), generator=g), _gumbel(g, (n, m))))
-    if "outage_init" in parts:
-        d["outage0_u"] = torch.rand(
-            (m,), generator=row_generator(seed, FOLD_OUTAGE_INIT))
-    if "faults" in parts:
-        d["slow_u"], d["slow_exp"], d["outage_u"] = draw_rounds(
-            row_generator(seed, FOLD_FAULTS), n_rounds,
-            lambda g: (torch.rand((n,), generator=g), _exponential(g, (n,)),
-                       torch.rand((m,), generator=g)))
-    if "byzantine" in parts:
-        d["byz_u"] = torch.rand((m,),
-                                generator=row_generator(seed, FOLD_BYZANTINE))
-    if "malicious" in parts:
-        d["mal_u"] = torch.rand((n,),
-                                generator=row_generator(seed, FOLD_MALICIOUS))
-    if "chain" in parts:
-        (d["sub_z"],) = draw_rounds(
-            row_generator(seed, FOLD_CHAIN), n_rounds,
-            lambda g: (torch.randn((m,), generator=g),))
+    for part in parts:
+        if part == "rollout":
+            d["steps"] = StepDraws(**draw_fields(
+                RowStream(seeds, FOLD_ROLLOUT, dev), env_mod.step_fields(cfg),
+                n_rounds))
+        elif part in per_round:
+            fold, fields = per_round[part]
+            d.update(draw_fields(RowStream(seeds, fold, dev), fields,
+                                 n_rounds))
+        else:
+            fold, fields = per_row[part]
+            d.update(draw_fields(RowStream(seeds, fold, dev), fields))
     return d
 
 
@@ -239,19 +298,11 @@ def draws_to(x, device):
 
 def scenario_draws(batch: ScenarioBatch, cfg: EnvConfig, parts,
                    n_rounds: int = 0, device=None) -> ScenarioDraws:
-    """The batch's :class:`ScenarioDraws` of the named ``parts``: each row's
-    from its own streams (:func:`row_draws`), stacked and moved to
-    ``device`` in one copy a field."""
-    rows = [row_draws(cfg, s, parts, n_rounds) for s in batch.seed.tolist()]
-
-    def stack(vals):
-        if isinstance(vals[0], tuple):
-            return type(vals[0])(*(None if f[0] is None else torch.stack(f)
-                                   for f in zip(*vals)))
-        return torch.stack(vals)
-
-    return draws_to(ScenarioDraws(**{k: stack([r[k] for r in rows])
-                                for k in rows[0]}), device)
+    """The batch's :class:`ScenarioDraws` of the named ``parts``, every row
+    from its own streams (:func:`make_draws`), made on ``device`` (default
+    ``cuda``) in one pass a part."""
+    return ScenarioDraws(**make_draws(cfg, batch.seed, parts, n_rounds,
+                                      device))
 
 
 def take_row(draws, i):
@@ -280,8 +331,7 @@ def sample_population(data_u, data_min, data_max, skew) -> torch.Tensor:
 
 
 def scenario_env(cfg: EnvConfig, draws: ScenarioDraws, data_min, data_max,
-                 skew, *, chain: bool = False, backend: str = "auto"
-                 ) -> EnvState:
+                 skew, *, chain: bool = False) -> EnvState:
     """The env realization of one scenario (draws without the scenario
     axis, 0-dim knobs) or of a batch (leading axis S everywhere): the
     population, channels and distances from the realization draws, the
@@ -296,8 +346,7 @@ def scenario_env(cfg: EnvConfig, draws: ScenarioDraws, data_min, data_max,
     view = None
     if chain and cfg.consensus is not None:
         view = consensus_mod.chain_init(
-            cfg.consensus, latency.bs_sum(data, assoc, cfg.n_bs,
-                                          backend=backend))
+            cfg.consensus, latency.bs_sum(data, assoc, cfg.n_bs))
     return EnvState(freqs=env_mod.bs_frequencies(cfg, dev), data_sizes=data,
                     h_up=draws.up, h_down=draws.down,
                     dist=wl.min_dist_m + draws.dist_u * (wl.max_dist_m
@@ -306,8 +355,8 @@ def scenario_env(cfg: EnvConfig, draws: ScenarioDraws, data_min, data_max,
 
 
 def _setup(cfg, batch, draws, parts, n_rounds, device):
-    """Device, the batch's knobs on it, the draws (made when None) and the
-    batch's realization with uniform bandwidth and b = 0.5."""
+    """Device, the batch's knobs on it, the draws (made there when None)
+    and the batch's realization with uniform bandwidth and b = 0.5."""
     dev = default_device(device)
     draws = (scenario_draws(batch, cfg, parts, n_rounds, dev) if draws is None
              else draws_to(draws, dev))
@@ -327,8 +376,8 @@ def _setup(cfg, batch, draws, parts, n_rounds, device):
 
 
 def run_baselines(cfg: EnvConfig, batch: ScenarioBatch,
-                  draws: Optional[ScenarioDraws] = None, *, device=None,
-                  backend: str = "auto") -> dict:
+                  draws: Optional[ScenarioDraws] = None, *,
+                  device=None) -> dict:
     """Eq. 17 round time of the random/average/greedy association policies
     for every scenario in the batch.
 
@@ -343,15 +392,14 @@ def run_baselines(cfg: EnvConfig, batch: ScenarioBatch,
 
     def rt(assoc):
         return latency.round_time(cfg.lat, assoc, b, st.data_sizes, st.freqs,
-                                  up, down, backend=backend)
+                                  up, down)
 
     greedy = assoc_mod.greedy_association(cfg.lat, st.data_sizes, st.freqs,
                                           up)
     t_random = rt(draws.rand_assoc.to(torch.int32))
     t_average = rt(st.assoc)
     t_greedy = rt(greedy)
-    load = assoc_mod.bs_loads(greedy, st.data_sizes, cfg.n_bs,
-                              backend=backend)
+    load = assoc_mod.bs_loads(greedy, st.data_sizes, cfg.n_bs)
     return {"random": t_random, "average": t_average, "greedy": t_greedy,
             "greedy_imbalance": load["imbalance"],
             "greedy_bs_loads": load["loads"],
@@ -360,8 +408,8 @@ def run_baselines(cfg: EnvConfig, batch: ScenarioBatch,
 
 def run_migration(cfg: EnvConfig, mcfg: MigrationConfig,
                   batch: ScenarioBatch, n_rounds: int = 10,
-                  draws: Optional[ScenarioDraws] = None, *, device=None,
-                  backend: str = "auto") -> dict:
+                  draws: Optional[ScenarioDraws] = None, *,
+                  device=None) -> dict:
     """Migration as a scenario axis: every scenario evolves its round-robin
     association ``n_rounds`` rounds under ``mcfg`` and scores Eq. 17 each
     round. Returns (S, n_rounds) ``round_times``, ``migration_rates`` and
@@ -375,13 +423,12 @@ def run_migration(cfg: EnvConfig, mcfg: MigrationConfig,
     for r in range(n_rounds):
         assoc2 = migration.migration_step(mcfg, draws.move_u[:, r],
                                           draws.gumbel[:, r], assoc,
-                                          st.data_sizes, cfg.n_bs,
-                                          backend=backend)
+                                          st.data_sizes, cfg.n_bs)
         times.append(latency.round_time(cfg.lat, assoc2, b, st.data_sizes,
-                                        st.freqs, up, down, backend=backend))
+                                        st.freqs, up, down))
         rates.append(migration.migration_rate(assoc, assoc2))
-        imbalance.append(assoc_mod.bs_loads(assoc2, st.data_sizes, cfg.n_bs,
-                                            backend=backend)["imbalance"])
+        imbalance.append(assoc_mod.bs_loads(assoc2, st.data_sizes,
+                                            cfg.n_bs)["imbalance"])
         assoc = assoc2
     return {"round_times": torch.stack(times, dim=1),
             "migration_rates": torch.stack(rates, dim=1),
@@ -401,7 +448,7 @@ def _batch_rates(batch: ScenarioBatch, fcfg: FaultConfig):
 
 def run_faults(cfg: EnvConfig, fcfg: FaultConfig, batch: ScenarioBatch,
                n_rounds: int = 10, draws: Optional[ScenarioDraws] = None, *,
-               device=None, backend: str = "auto") -> dict:
+               device=None) -> dict:
     """Faults as a scenario axis: every scenario runs ``n_rounds`` rounds
     under straggler slowdowns and a Gilbert-Elliott outage chain (rates
     from the batch's fault axes when present, else ``fcfg``). Returns
@@ -423,7 +470,7 @@ def run_faults(cfg: EnvConfig, fcfg: FaultConfig, batch: ScenarioBatch,
         up_eff = faults_mod.outage_gate(fcfg, up, bad)
         times.append(latency.round_time(cfg.lat, st.assoc, b * slow,
                                         st.data_sizes, st.freqs, up_eff,
-                                        down, backend=backend))
+                                        down))
         s_frac.append(faults_mod.straggler_frac(slow))
         o_frac.append(torch.mean(bad.to(torch.float32), dim=-1))
     return {"round_times": torch.stack(times, dim=1),
@@ -449,8 +496,8 @@ def _batch_consensus(batch: ScenarioBatch, ccfg: ConsensusConfig,
 
 def run_consensus(cfg: EnvConfig, ccfg: ConsensusConfig,
                   batch: ScenarioBatch, n_rounds: int = 10,
-                  draws: Optional[ScenarioDraws] = None, *, device=None,
-                  backend: str = "auto") -> dict:
+                  draws: Optional[ScenarioDraws] = None, *,
+                  device=None) -> dict:
     """Consensus as a scenario axis: every scenario advances a chain
     ``n_rounds`` blocks while the PBFT model prices Eq. 17's block phase
     from its own downlink rates (byzantine fraction, quorum f and block size
@@ -466,11 +513,11 @@ def run_consensus(cfg: EnvConfig, ccfg: ConsensusConfig,
         device)
     m = cfg.n_bs
     cmp_bc = (torch.amax(latency.t_cmp(cfg.lat, st.assoc, b, st.data_sizes,
-                                       st.freqs, backend=backend), dim=-1)
-              + torch.amax(latency.t_broadcast(cfg.lat, st.assoc, up, m,
-                                               backend=backend), dim=-1))
-    occ = latency.twin_counts(st.assoc, m, backend=backend)
-    data_per_bs = latency.bs_sum(st.data_sizes, st.assoc, m, backend=backend)
+                                       st.freqs), dim=-1)
+              + torch.amax(latency.t_broadcast(cfg.lat, st.assoc, up, m),
+                           dim=-1))
+    occ = latency.twin_counts(st.assoc, m)
+    data_per_bs = latency.bs_sum(st.data_sizes, st.assoc, m)
     byz_frac, qf, sb = _batch_consensus(knobs, ccfg, cfg.lat)
     qf = torch.round(qf).to(torch.int32)
     if ccfg.n_groups > 1:
@@ -558,6 +605,12 @@ def scenario_launches(runner: str, cfg: EnvConfig, n_scenarios: int,
 # ---------------------------------------------------------------------------
 
 
+def _row_uniforms(batch: ScenarioBatch, i: int, fold: int, n: int):
+    """The first ``n`` uniforms of stream ``fold`` of row ``i``, on the
+    CPU: the ``data_u``/``mal_u`` its runners draw on any device."""
+    return RowStream(batch.seed[i], fold, "cpu").draw([("uniform", (n,))])[0]
+
+
 def population_row(batch: ScenarioBatch, i: int, n_twins: int, *,
                    data_u=None):
     """Host view of scenario row ``i``'s twin population, the bridge to the
@@ -566,9 +619,7 @@ def population_row(batch: ScenarioBatch, i: int, n_twins: int, *,
     same ``n_twins`` (its uniforms: ``data_u``, by default the first draw
     of the row's realization stream)."""
     if data_u is None:
-        data_u = torch.rand((n_twins,),
-                            generator=row_generator(batch.seed[i],
-                                                    FOLD_REALIZATION))
+        data_u = _row_uniforms(batch, i, FOLD_REALIZATION, n_twins)
     data_u = torch.as_tensor(data_u, dtype=torch.float32).cpu()
     d = sample_population(data_u, batch.data_min[i], batch.data_max[i],
                           batch.skew[i])
@@ -585,9 +636,7 @@ def fault_row(batch: ScenarioBatch, i: int, n_twins: int, *, mal_u=None):
     mal = None
     if batch.malicious is not None:
         if mal_u is None:
-            mal_u = torch.rand((n_twins,),
-                               generator=row_generator(batch.seed[i],
-                                                       FOLD_MALICIOUS))
+            mal_u = _row_uniforms(batch, i, FOLD_MALICIOUS, n_twins)
         mal_u = torch.as_tensor(mal_u, dtype=torch.float32).cpu()
         mal = (mal_u < torch.as_tensor(batch.malicious[i],
                                        dtype=torch.float32)).numpy()

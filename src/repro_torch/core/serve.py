@@ -71,7 +71,6 @@ class ServeConfig:
     ``evolve_channels`` advance channel/frequency dynamics each round.
     ``fl``         a ``fl.stream.FLServeConfig`` to stream the FL workload
                    through the round (needs a per-round ``FLPlan``).
-    ``backend``    the segment-reduce backend of every per-BS sum.
     """
     capacity: int
     join_rate: float = 0.0
@@ -79,7 +78,6 @@ class ServeConfig:
     policy: Optional[str] = None
     evolve_channels: bool = False
     fl: Optional[Any] = None
-    backend: str = "auto"
 
     @property
     def churns(self) -> bool:
@@ -128,31 +126,28 @@ class RoundDraws(NamedTuple):
 def stream_draws(cfg: EnvConfig, scfg: ServeConfig, seed, n_rounds: int,
                  device=None) -> RoundDraws:
     """The draws of ``n_rounds`` of serving the scenario row ``seed``, made
-    on the CPU round after round from the row's streams and moved to
-    ``device`` once, before the rounds run."""
+    on ``device`` (default ``cuda``) round after round from the row's
+    streams, before the rounds run."""
     parts = tuple(p for p, on in (("migration", cfg.migration),
                                   ("faults", cfg.faults),
                                   ("chain", cfg.consensus))
                   if on is not None)
-    d = scenario.row_draws(cfg, seed, parts, n_rounds)
-    d.pop("outage0_u", None)
+    dev = default_device(device)
+    seed = torch.as_tensor(seed, dtype=torch.int64)
+    d = scenario.make_draws(cfg, seed, parts, n_rounds, dev)
     n, m, c = cfg.n_twins, cfg.n_bs, cfg.wl.n_subchannels
     if scfg.churns:
-        d["leave_u"], d["join_u"], d["new_data_u"], d["new_assoc"] = \
-            scenario.draw_rounds(
-                scenario.row_generator(seed, scenario.FOLD_CHURN), n_rounds,
-                lambda g: (torch.rand((n,), generator=g),
-                           torch.rand((n,), generator=g),
-                           torch.rand((n,), generator=g),
-                           torch.randint(0, m, (n,), generator=g)))
+        d.update(scenario.draw_fields(
+            scenario.RowStream(seed, scenario.FOLD_CHURN, dev),
+            [("leave_u", "uniform", (n,)), ("join_u", "uniform", (n,)),
+             ("new_data_u", "uniform", (n,)), ("new_assoc", m, (n,))],
+            n_rounds))
     if scfg.evolve_channels:
-        d["jitter"], d["up"], d["down"] = scenario.draw_rounds(
-            scenario.row_generator(seed, scenario.FOLD_DYNAMICS), n_rounds,
-            lambda g: (torch.randn((m,), generator=g),
-                       torch.empty((m, c)).exponential_(generator=g),
-                       torch.empty((m, c)).exponential_(generator=g)))
-    dev = default_device(device)
-    return RoundDraws(**{k: v.to(dev) for k, v in d.items()})
+        d.update(scenario.draw_fields(
+            scenario.RowStream(seed, scenario.FOLD_DYNAMICS, dev),
+            [("jitter", "normal", (m,)), ("up", "exponential", (m, c)),
+             ("down", "exponential", (m, c))], n_rounds))
+    return RoundDraws(**d)
 
 
 def round_draws(draws: RoundDraws, t: int) -> RoundDraws:
@@ -231,8 +226,9 @@ def serve_init(cfg: EnvConfig, scfg: ServeConfig, row: StreamKnobs, *,
                          f" buffer is the twin axis")
     dev = default_device(device)
     if draws is None:
-        draws = ScenarioDraws(**scenario.row_draws(
-            cfg, seed, ("realization", "outage_init", "byzantine")))
+        draws = ScenarioDraws(**scenario.make_draws(
+            cfg, torch.as_tensor(seed, dtype=torch.int64),
+            ("realization", "outage_init", "byzantine"), device=dev))
     draws = scenario.draws_to(draws, dev)
     row = _knobs_on(row, dev)
     st = scenario.scenario_env(cfg, draws, row.data_min, row.data_max,
@@ -243,7 +239,7 @@ def serve_init(cfg: EnvConfig, scfg: ServeConfig, row: StreamKnobs, *,
     data = torch.where(active, st.data_sizes, 0.0)
     assoc = torch.where(active, st.assoc, m)
     chain = (None if cfg.consensus is None else consensus_mod.chain_init(
-        cfg.consensus, latency.bs_sum(data, assoc, m, backend=scfg.backend)))
+        cfg.consensus, latency.bs_sum(data, assoc, m)))
     bad = (faults_mod.outage_draw(cfg.faults, draws.outage0_u,
                                   rate=row.outage)
            if cfg.faults is not None
@@ -312,7 +308,6 @@ def _round_step(cfg: EnvConfig, scfg: ServeConfig, state: ServeState,
     ``(state', metrics)``, ``state'`` holding ``state``'s tensors."""
     st = state.env
     m = cfg.n_bs
-    be = scfg.backend
     active = state.active
     dev = active.device
 
@@ -337,7 +332,7 @@ def _round_step(cfg: EnvConfig, scfg: ServeConfig, state: ServeState,
     if cfg.migration is not None:
         assoc = migration.migration_step(cfg.migration, draws.move_u,
                                          draws.gumbel, assoc_cmd,
-                                         st.data_sizes, m, backend=be)
+                                         st.data_sizes, m)
         # the kernel migrates every row; inactive rows back out of range
         assoc = torch.where(active, assoc, m)
     else:
@@ -357,9 +352,8 @@ def _round_step(cfg: EnvConfig, scfg: ServeConfig, state: ServeState,
 
     # --- Eq. 17: the max + max + block composition of the runners ---
     cmp_max = torch.amax(latency.t_cmp(cfg.lat, assoc, b_eff, st.data_sizes,
-                                       st.freqs, backend=be))
-    bc_max = torch.amax(latency.t_broadcast(cfg.lat, assoc, up_eff, m,
-                                            backend=be))
+                                       st.freqs))
+    bc_max = torch.amax(latency.t_broadcast(cfg.lat, assoc, up_eff, m))
     if cfg.consensus is not None:
         qf = torch.round(row.quorum).to(torch.int32)
         t_block = consensus_mod.consensus_time(
@@ -373,7 +367,7 @@ def _round_step(cfg: EnvConfig, scfg: ServeConfig, state: ServeState,
     chain = st.chain
     accept = None
     if cfg.consensus is not None:
-        occ = latency.twin_counts(assoc, m, backend=be)
+        occ = latency.twin_counts(assoc, m)
         chain, _, accept = consensus_mod.chain_round(
             cfg.consensus, st.chain, draws.sub_z, state.byz, occ)
 
@@ -385,7 +379,7 @@ def _round_step(cfg: EnvConfig, scfg: ServeConfig, state: ServeState,
 
         _, fl_metrics = fl_stream.fl_round(
             scfg.fl, state.fl, plan, active=active, data_sizes=st.data_sizes,
-            assoc=assoc, n_bs=m, backend=be)
+            assoc=assoc, n_bs=m)
 
     # --- churn (stream 11: churn-off serving reads the runners' draws and
     # nothing else) ---
@@ -409,7 +403,7 @@ def _round_step(cfg: EnvConfig, scfg: ServeConfig, state: ServeState,
         metrics["straggler_frac"] = faults_mod.straggler_frac(slow)
         metrics["outage_frac"] = torch.mean(bad.to(torch.float32))
     if cfg.migration is not None:
-        load = assoc_mod.bs_loads(assoc, st.data_sizes, m, backend=be)
+        load = assoc_mod.bs_loads(assoc, st.data_sizes, m)
         metrics["migration_rate"] = migration.migration_rate(assoc_cmd, assoc)
         metrics["imbalance"] = load["imbalance"]
     if cfg.consensus is not None:

@@ -24,12 +24,14 @@ from repro_torch.optim import make_optimizer
 
 def sgd_step(loss_fn: Callable, opt, params, opt_state, batch):
     """One local SGD step: loss and gradients of ``loss_fn`` at ``params``,
-    then one optimizer update. Returns ``(params, opt_state, loss)`` with
-    the new params detached from autograd."""
+    then one optimizer update. ``loss_fn`` may return a vector of
+    independent losses (stacked models, :func:`local_sgd_stacked`): the
+    gradient is that of their sum. Returns ``(params, opt_state, loss)``
+    with the new params detached from autograd."""
     keys = sorted(params)
     leaves = [params[k].detach().requires_grad_(True) for k in keys]
     loss = loss_fn(dict(zip(keys, leaves)), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss.sum(), leaves)
     with torch.no_grad():
         params, opt_state = opt.update(
             {k: p.detach() for k, p in zip(keys, leaves)},
@@ -57,27 +59,21 @@ def local_sgd_stacked(loss_stacked: Callable, opt, params, xs, ys):
     ``xs``/``ys`` (P, local_iters, batch, ...). ``loss_stacked(params,
     batch) -> (P,)`` evaluates P models (leaves with a leading P axis) on
     their own minibatches (``models.cnn.loss_stacked``: the convolutions
-    grouped over the P models). Each step takes one autograd pass over the
-    sum of the P losses, which gives every model exactly its own gradient,
-    then the optimizer's elementwise update on the stacked leaves: every
-    twin gets :func:`sgd_step`'s update law. Returns ``(params, opt_state,
+    grouped over the P models). Each step is one :func:`sgd_step` on the
+    stacked leaves: its autograd pass over the sum of the P losses gives
+    every model exactly its own gradient, and the optimizer's update is
+    elementwise. Returns ``(params, opt_state,
     losses (P, local_iters))``, leaves with a leading P axis."""
     p = xs.shape[0]
-    keys = sorted(params)
-    params = {k: params[k].detach().expand((p,) + tuple(params[k].shape))
-              for k in keys}
+    params = {k: v.detach().expand((p,) + tuple(v.shape))
+              for k, v in params.items()}
     opt_state = opt.init(params)
     losses = []
-    for i in range(xs.shape[1]):
-        leaves = [params[k].detach().requires_grad_(True) for k in keys]
-        loss = loss_stacked(dict(zip(keys, leaves)),
-                            {"images": xs[:, i], "labels": ys[:, i]})
-        grads = torch.autograd.grad(loss.sum(), leaves)
-        with torch.no_grad():
-            params, opt_state = opt.update(
-                {k: v.detach() for k, v in zip(keys, leaves)},
-                dict(zip(keys, grads)), opt_state)
-        losses.append(loss.detach())
+    for x, y in zip(xs.unbind(1), ys.unbind(1)):
+        params, opt_state, loss = sgd_step(loss_stacked, opt, params,
+                                           opt_state,
+                                           {"images": x, "labels": y})
+        losses.append(loss)
     return params, opt_state, torch.stack(losses, dim=1)
 
 

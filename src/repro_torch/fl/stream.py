@@ -293,7 +293,7 @@ def _col(mask, ndim: int):
 
 
 def fl_round(fcfg: FLServeConfig, fl: FLState, plan: FLPlan, *, active,
-             data_sizes, assoc, n_bs: int, backend: str = "auto"):
+             data_sizes, assoc, n_bs: int):
     """One streamed FL round, on the plan row's device, without a host
     synchronisation.
 
@@ -345,15 +345,14 @@ def fl_round(fcfg: FLServeConfig, fl: FLState, plan: FLPlan, *, active,
     # --- Eq. 4 (per BS), plain or robust ---
     if fcfg.aggregator == "fedavg":
         per_bs, bs_w = hierarchy.bs_aggregate_stacked(
-            fl.twin_params, w_cap, assoc_cap, n_bs, backend=backend)
+            fl.twin_params, w_cap, assoc_cap, n_bs)
         n_cli = n_sus = None
     else:
         per_bs, bs_w, survivor = faults_mod.robust_bs_aggregate_stacked(
             fl.twin_params, w_cap, assoc_cap, n_bs,
             aggregator=fcfg.aggregator, trim_k=fcfg.trim_k,
-            krum_f=fcfg.krum_f, backend=backend)
-        n_cli, n_sus = faults_mod.suspect_counts(survivor, assoc_cap, n_bs,
-                                                 backend=backend)
+            krum_f=fcfg.krum_f)
+        n_cli, n_sus = faults_mod.suspect_counts(survivor, assoc_cap, n_bs)
 
     # --- the verify gate on the fixed holdout slice ---
     eval_batch = {"images": fl.x_eval, "labels": fl.y_eval}

@@ -187,6 +187,23 @@ def test_serve_rounds_overlap_is_sync_free(cuda):
         assert (out[True][k] == out[False][k]).all(), k
 
 
+def test_default_draws_match_the_cpu(cuda):
+    """The scenario runners' default draws on the card: integer and uniform
+    draws are the CPU's bits, the transcendental ones within rtol 1e-6."""
+    from repro_torch.core import scenario
+
+    seeds = torch.tensor([0, 7, 2**33 + 5])
+    fields = [(k, (64, 100))
+              for k in (5, "uniform", "exponential", "gumbel", "normal")]
+    got = scenario.RowStream(seeds, 3, cuda).draw(fields, 4)
+    want = scenario.RowStream(seeds, 3, "cpu").draw(fields, 4)
+    for (kind, _), g, w in zip(fields, got, want):
+        if kind in (5, "uniform"):
+            assert torch.equal(g.cpu(), w), kind
+        else:
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("g,n,m", [(64, 100, 5), (320, 100, 5),
                                    (7, 50, 223)])
 def test_segment_kernel_grouped_matches_plain(cuda, g, n, m):

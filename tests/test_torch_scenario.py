@@ -26,7 +26,8 @@ from repro_torch.core import association as t_assoc
 from repro_torch.core import scenario as t_scn
 from repro_torch.core.marl import ddpg as t_ddpg
 from torch_scenario_helpers import (ALL_AXES, AXES, axis_cfgs, batches,
-                                    counting_kernel, scenario_draws)
+                                    counting_kernel, pin_backend,
+                                    scenario_draws)
 
 CPU = "cpu"
 LAT = dict(rtol=1e-5, atol=0)
@@ -56,16 +57,48 @@ def test_make_batch_axes():
     full = t_scn.make_batch(3, 5, malicious=(0.0, 0.5), **ALL_AXES)
     for f in ("seed", "data_min", "data_max", "skew", "alpha"):
         _eq(getattr(full, f), getattr(b, f))  # an axis never moves another
+    _eq(t_scn.make_batch(3, 2).seed, b.seed[:2])
     lo, hi = ALL_AXES["block_size"]
     assert lo <= float(full.block_size.min()) <= float(
         full.block_size.max()) <= hi
     # the default draws: every row from its own streams, a prefix of more
     cfg = axis_cfgs("all")[1]
-    d2 = t_scn.scenario_draws(b, cfg, ("realization", "faults"), 2)
-    d3 = t_scn.scenario_draws(b, cfg, ("realization", "faults"), 3)
+    d2 = t_scn.scenario_draws(b, cfg, ("realization", "faults"), 2, CPU)
+    d3 = t_scn.scenario_draws(b, cfg, ("realization", "faults"), 3, CPU)
     _eq(d2.data_u, d3.data_u)
     _eq(d2.slow_u, d3.slow_u[:, :2])
     assert d3.slow_u.shape == (5, 3, cfg.n_twins)
+    # a row's host bridge reads the population its runners draw
+    _eq(t_scn.population_row(b, 4, cfg.n_twins)[0], t_scn.sample_population(
+        d2.data_u[4], b.data_min[4], b.data_max[4], b.skew[4]))
+
+
+@pytest.mark.parametrize("kind, mean, var", [
+    ("uniform", 0.5, 1 / 12), ("exponential", 1.0, 1.0),
+    ("gumbel", 0.5772157, np.pi ** 2 / 6), ("normal", 0.0, 1.0),
+    (7, 3.0, 4.0)])
+def test_row_stream_law(kind, mean, var):
+    """The default draws' stream: a row's draws are the same whatever batch
+    it sits in, later rounds never move earlier ones, other folds and seeds
+    give other draws, and 40,000 draws a row have the law's mean (within 5
+    standard errors) and variance (within 5%)."""
+    seeds = torch.tensor([3, -5, 2**40 + 1])
+    (x,) = t_scn.RowStream(seeds, 2, CPU).draw([(kind, (200, 200))])
+    assert x.shape == (3, 200, 200)
+    for i in range(3):
+        _eq(t_scn.RowStream(seeds[i], 2, CPU).draw([(kind, (200, 200))])[0],
+            x[i])
+    (r2,) = t_scn.RowStream(seeds, 2, CPU).draw([(kind, (5,))], 2)
+    (r3,) = t_scn.RowStream(seeds, 2, CPU).draw([(kind, (5,))], 3)
+    assert r3.shape == (3, 3, 5)
+    _eq(r2, r3[:, :2])
+    (other,) = t_scn.RowStream(seeds, 3, CPU).draw([(kind, (200, 200))])
+    assert float((other == x).double().mean()) < 0.2
+    assert float((x[0] == x[1]).double().mean()) < 0.2
+    x = x.double().reshape(3, -1)
+    se = (var / x.shape[1]) ** 0.5
+    np.testing.assert_allclose(x.mean(1).numpy(), mean, atol=5 * se)
+    np.testing.assert_allclose(x.var(1).numpy(), var, rtol=0.05)
 
 
 def test_row_bridges_and_stream_knobs():
@@ -200,13 +233,14 @@ def test_run_policy_matches_reference():
 
 @pytest.mark.parametrize("runner", ["baselines", "faults", "migration",
                                     "consensus"])
-def test_batched_runner_equals_per_scenario_loop(runner):
+def test_batched_runner_equals_per_scenario_loop(monkeypatch, runner):
     """The batch's scenario axis changes nothing: each row of a 3-scenario
     call equals a 1-scenario call on that row, bit for bit
     (``segment_sum`` pinned)."""
     tb = t_scn.make_batch(1, 3, **ALL_AXES)
     tc = axis_cfgs("all")[1]
-    k, kw = 3, dict(device=CPU, backend="segment_sum")
+    k, kw = 3, dict(device=CPU)
+    pin_backend(monkeypatch, "segment_sum")
 
     def run(batch):
         if runner == "baselines":

@@ -25,7 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import scenario as j_scn
 from repro.core import serve as j_serve
 from repro.core.marl import ddpg as j_ddpg
 from repro_torch import bridge
@@ -37,7 +36,7 @@ from repro_torch.core.marl import replay as t_replay
 from repro_torch.fl import stream as t_fls
 from torch_scenario_helpers import (ALL_AXES, axis_cfgs, batches,
                                     counting_kernel, init_draws, knob_rows,
-                                    round_draws)
+                                    pin_backend, round_draws)
 
 CPU = torch.device("cpu")
 LAT = dict(rtol=1e-5, atol=0)
@@ -220,7 +219,7 @@ def test_rounds_match_reference(case):
 
 @pytest.mark.parametrize("axis", ["baseline", "faults", "migration",
                                   "consensus"])
-def test_streaming_matches_batch_bitwise(axis):
+def test_streaming_matches_batch_bitwise(monkeypatch, axis):
     """K streamed rounds of the port at a fixed full population equal the
     port's batch runner on the same scenario row, bit for bit (the same
     draw streams, ``segment_sum`` pinned on both)."""
@@ -230,15 +229,15 @@ def test_streaming_matches_batch_bitwise(axis):
     knobs = t_scn.stream_knobs(tb, fcfg=tc.faults, ccfg=tc.consensus,
                                lat=tc.lat)
     row = t_scn.knob_row(knobs, i)
-    be = "segment_sum"
-    scfg = t_serve.ServeConfig(capacity=12, backend=be)
+    pin_backend(monkeypatch, "segment_sum")
+    scfg = t_serve.ServeConfig(capacity=12)
     seed = tb.seed[i]
     st = t_serve.serve_init(tc, scfg, row, seed=seed, device=CPU)
     _, m = t_serve.serve_rounds(tc, scfg, st,
                                 t_serve.stream_draws(tc, scfg, seed, k, CPU),
                                 row, n_rounds=k, overlap=False)
     m = t_serve.stack_metrics(m)
-    run = dict(device=CPU, backend=be)
+    run = dict(device=CPU)
     if axis == "baseline":
         ref = t_scn.run_baselines(tc, tb, **run)
         _eq(m["round_time"], np.full(k, ref["average"][i].numpy()))

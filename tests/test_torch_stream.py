@@ -30,6 +30,7 @@ from repro_torch.fl import stream as t_fls
 from repro_torch.models import cnn as t_cnn
 from repro_torch.models import tiny as t_tiny
 from repro_torch.optim import make_optimizer
+from torch_scenario_helpers import pin_backend
 
 CPU = torch.device("cpu")
 N, M = 12, 3
@@ -171,9 +172,11 @@ def test_fl_init_matches_reference(data):
 
 
 @pytest.mark.parametrize("aggregator", ["fedavg", "trimmed_mean"])
-def test_fl_round_matches_reference(aggregator, data):
+def test_fl_round_matches_reference(aggregator, data, monkeypatch):
     """Two rounds from one state, 6 of 12 twins planned a round, two of
-    them malicious (label flip), the verify gate on, one twin inactive."""
+    them malicious (label flip), the verify gate on, one twin inactive
+    (the port's sums on the index-ordered ``segment_sum`` backend)."""
+    pin_backend(monkeypatch, "segment_sum")
     kw = dict(model="tiny", participants=6, local_iters=2, batch_size=8,
               aggregator=aggregator, n_eval=64)
     fcfg_j, fcfg_t = j_fls.FLServeConfig(**kw), t_fls.FLServeConfig(**kw)
@@ -195,7 +198,7 @@ def test_fl_round_matches_reference(aggregator, data):
         fl_t2, mt = t_fls.fl_round(
             fcfg_t, fl_t, t_fls.plan_row(plan_t, t),
             active=torch.tensor(active), data_sizes=torch.tensor(sizes),
-            assoc=torch.tensor(assoc), n_bs=M, backend="segment_sum")
+            assoc=torch.tensor(assoc), n_bs=M)
         assert fl_t2 is fl_t  # written in place
         assert set(mt) == set(mj)
         _eq(mt["fl_bs_weight"], mj["fl_bs_weight"])

@@ -174,6 +174,14 @@ def knob_rows(jbatch, tbatch, jcfg, tcfg, i):
     return j_scn.knob_row(jk, i), t_scn.knob_row(tk, i)
 
 
+def pin_backend(monkeypatch, name):
+    """Send every ``"auto"`` segment reduction to the backend ``name``."""
+    import importlib
+
+    sr = importlib.import_module("repro_torch.kernels.segment_reduce")
+    monkeypatch.setattr(sr, "resolve_backend", lambda *a, **k: name)
+
+
 def counting_kernel(monkeypatch):
     """Force the kernel backend on the CPU (its plain version) and count
     its calls, as launches on the card: returns the list of calls."""
@@ -188,5 +196,5 @@ def counting_kernel(monkeypatch):
         return kernel(*a, **k)
 
     monkeypatch.setitem(sr._IMPLS, "kernel", counted)
-    monkeypatch.setattr(sr, "resolve_backend", lambda *a, **k: "kernel")
+    pin_backend(monkeypatch, "kernel")
     return calls
