@@ -14,8 +14,10 @@ sources, in parallel, and drives the port's paths:
 * the same round under attack, faults and PBFT verification: three
   full-width trimmed-mean rounds and one Krum round with model-replacement
   attackers, stragglers, outages and the PBFT block term, the segment
-  kernel's launches held to the count the code makes, and a trimmed-mean
-  and a Krum round on the GPU checked against the same rounds on the CPU;
+  kernel's launches held to the count the code makes, the first
+  trimmed-mean round run twice from one state and held bit for bit, and a
+  trimmed-mean and a Krum round on the GPU checked against the same rounds
+  on the CPU;
 * the MARL edge-association controller: the segment kernel's gradient (a
   gather) and grouped call held against the plain version's autograd at
   the update's shapes; 200 full-width MADDPG training steps (100 twins, 5
@@ -38,6 +40,13 @@ sources, in parallel, and drives the port's paths:
   round's profile, streaming against the batch runners per axis, one
   round on the GPU against the CPU, and a policy-driven stream; then the
   serving CLI with the tiny model at capacity 10,000;
+* the twin mesh: 2 ranks on the one card over gloo (NCCL needs a card per
+  rank), each sharded entry point against the same call on one rank at
+  the sizes of docs/SCALING.md (the segment backend at 1,000,003 twins,
+  the latency model and the env at 10^6, 60 MARL steps, the four runners
+  on 256 scenarios, the serving CLI at 10,000 twins), the segment kernel's
+  launches on each rank held to the one-rank run's, the all-reduce calls
+  counted, the replicated state checked bitwise equal on both ranks;
 * the LM serving path: the flash-attention kernel is held against its plain
   version on the reference tests' cases (fp32 through its CUDA-core
   variant, bf16 through its tensor-core variant), at head dims up to 256,
@@ -274,6 +283,39 @@ def phase_segment_check(torch, sr) -> float:
     if empty.shape != (5, 7) or empty.any() or sr.KERNEL.launches != before:
         raise AssertionError("n=0 must return zeros without a launch")
     log("[segment] N=0: zeros (5, 7), no launch")
+    # past the kernel's MAX_SEGMENTS (223) segments: one launch a window of
+    # at most 223 segment ids (ROADMAP C1a)
+    from repro_torch.core import migration
+
+    cap = sr.KERNEL.lib().seg_reduce_max_segments()
+    for m in (cap + 1, 500):
+        vals, ids = _seg_case(torch, gen, 5000, 3, m, lo=-1, hi=m + 2)
+        before = sr.KERNEL.launches
+        out = sr.segment_reduce(vals, ids, m)
+        launched = sr.KERNEL.launches - before
+        err = float((out - sr._seg_tiled_plain(vals, ids, m)).abs().max())
+        torch.testing.assert_close(out, sr._seg_tiled_plain(vals, ids, m),
+                                   rtol=SEG_RTOL, atol=SEG_ATOL)
+        if launched != -(-m // cap):
+            raise AssertionError(f"M={m}: {launched} launches, not one a "
+                                 f"window of {cap}")
+        log(f"[segment] N=5000 K=3 M={m}: {launched} window launches, "
+            f"max_abs_err={err:.3e}")
+    old = torch.randint(0, 15, (100_000,), generator=gen, device="cuda")
+    new = torch.randint(0, 15, (100_000,), generator=gen, device="cuda")
+    before = sr.KERNEL.launches
+    flows = migration.migration_flows(old, new, 15)
+    launched = sr.KERNEL.launches - before
+    plain = sr._seg_tiled_plain(
+        torch.ones((100_000, 1), device="cuda"),
+        (old * 15 + new).to(torch.int32), 225).reshape(15, 15)
+    if launched != 2 or not torch.equal(flows, plain) or not torch.equal(
+            flows.cpu(), migration.migration_flows(old.cpu(), new.cpu(), 15)):
+        raise AssertionError(f"migration_flows at n_bs=15: {launched} "
+                             f"launches, or flows unlike the plain version "
+                             f"and the CPU")
+    log("[segment] migration_flows n_bs=15 (225 pair ids): 2 window "
+        "launches, equal to the plain version and to the CPU")
     log(f"[segment] ok: all within rtol {SEG_RTOL} / atol {SEG_ATOL} of the "
         f"plain version; max_abs_err at the main path's shapes {worst:.3e}")
     return worst
@@ -488,6 +530,54 @@ def _verdicts(system) -> dict:
             if t.kind == "train_model"}
 
 
+def _c1b_record(torch, data, cfg) -> dict:
+    """ROADMAP C1b's measurement, recorded and not asserted: the first
+    trimmed-mean round from one state, twice, with cuDNN's default
+    algorithms (the round's ``deterministic_cudnn`` context swapped for a
+    null one), with its largest parameter difference; then 5 rounds on one
+    system under each setting, timed. Runs off the counted path."""
+    import contextlib
+
+    from repro_torch.fl import (EXAMPLE_PARTICIPATING_USERS, DTWNSystem,
+                                example_association)
+
+    server = importlib.import_module("repro_torch.fl.server")
+    kept = server.deterministic_cudnn
+
+    def rounds(system, k):
+        out = []
+        for _ in range(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            system.run_round(example_association(system),
+                             participating_users=EXAMPLE_PARTICIPATING_USERS)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    rec = {}
+    try:
+        server.deterministic_cudnn = contextlib.nullcontext
+        a, b = DTWNSystem(cfg, data, seed=0), DTWNSystem(cfg, data, seed=0)
+        rounds(a, 1)
+        rounds(b, 1)
+        rec["default_max_diff"] = max(
+            float(torch.max(torch.abs(a.params[k] - b.params[k])))
+            for k in a.params)
+        rec["default_ms"] = rounds(b, 5)
+    finally:
+        server.deterministic_cudnn = kept
+    rec["deterministic_ms"] = rounds(b, 5)
+    log(f"[robust] C1b: with cuDNN's default algorithms two first rounds "
+        f"from one state differ by up to {rec['default_max_diff']:.3e}; "
+        f"steady rounds {', '.join(f'{x:.1f}' for x in rec['default_ms'])} "
+        f"ms default, "
+        f"{', '.join(f'{x:.1f}' for x in rec['deterministic_ms'])} ms "
+        f"deterministic (medians {statistics.median(rec['default_ms']):.1f} "
+        f"and {statistics.median(rec['deterministic_ms']):.1f})")
+    return rec
+
+
 def phase_robust_round(torch, sr, fr, data, kernels) -> dict:
     """The paper's round under attack, faults and PBFT verification at full
     width: 3 trimmed-mean rounds, then 1 Krum round, with every count set
@@ -512,8 +602,17 @@ def phase_robust_round(torch, sr, fr, data, kernels) -> dict:
     plan = [cfg] * 3 + [dataclasses.replace(cfg, aggregator="krum",
                                             krum_f=1)]
     want = sum(robust_round_launches(c, len(system.params)) for c in plan)
+    # ROADMAP C1b: the same trimmed-mean round from the same state, on a
+    # second system built alike, must give the same bits
+    twin = DTWNSystem(cfg, data, seed=0)
+    twin_info = twin.run_round(
+        example_association(twin),
+        participating_users=EXAMPLE_PARTICIPATING_USERS)
+    twin_params = {k: v.clone() for k, v in twin.params.items()}
+    del twin
+    c1b = _c1b_record(torch, data, cfg)
     _reset(kernels)  # every count, just before the path
-    for c in plan:
+    for i, c in enumerate(plan):
         system.cfg = c
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -531,6 +630,16 @@ def phase_robust_round(torch, sr, fr, data, kernels) -> dict:
             f"{int(system.malicious[info['chosen']].sum())}")
         if not math.isfinite(info["loss"]):
             raise AssertionError(f"loss is not finite: {info['loss']}")
+        if i == 0:
+            same = (info["loss"] == twin_info["loss"] and all(
+                torch.equal(system.params[k], v)
+                for k, v in twin_params.items()))
+            log(f"[robust] the first trimmed-mean round from one state, "
+                f"twice: bitwise equal {same} (loss {twin_info['loss']!r} "
+                f"and {info['loss']!r})")
+            if not same:
+                raise AssertionError("the trimmed-mean round does not "
+                                     "repeat bit for bit (ROADMAP C1b)")
         if not info["chain_valid"]:
             raise AssertionError("chain does not validate")
         if not info["consensus_time_s"] > eq16:
@@ -549,7 +658,7 @@ def phase_robust_round(torch, sr, fr, data, kernels) -> dict:
     if launches["fedavg_reduce"] <= 0:
         raise AssertionError("fedavg kernel never launched in the robust "
                              "rounds")
-    return launches
+    return {**launches, "c1b": c1b}
 
 
 def phase_robust_gpu_vs_cpu(torch, data) -> None:
@@ -2370,6 +2479,335 @@ def phase_serve_cli(torch, sr, kernels) -> dict:
                                       _cli_setup(torch))}
 
 
+# ---------------------------------------------------------------------------
+# the twin mesh: 2 gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+# docs/SCALING.md's sizes for the sharded path: the segment backend at a
+# ragged N over K = 1 and 16 lanes, the latency model and the env at 10^6
+# twins, the trainer, the runners and the serve loop at the paper's width
+SHARD_SEG = (1_000_003, 16, 5)
+SHARD_LAT_N = 1_000_000
+SHARD_ENV_N = 1_000_000
+SHARD_TRAIN_STEPS = 60
+SHARD_SCENARIOS, SHARD_ROUNDS = 256, 10
+SHARD_RTOL = 1e-5
+
+
+def _sharded_inputs(torch):
+    """The phase's global inputs, made alike in every process from seed 0
+    on the CPU."""
+    gen = torch.Generator().manual_seed(0)
+    n, k, m = SHARD_SEG
+    nl = SHARD_LAT_N
+    return {
+        "seg_values": torch.randn((n, k), generator=gen),
+        "seg_assoc": torch.randint(0, m, (n,), generator=gen,
+                                   dtype=torch.int32),
+        "lat_assoc": torch.randint(0, m, (nl,), generator=gen,
+                                   dtype=torch.int32),
+        "lat_b": 0.05 + 0.95 * torch.rand((nl,), generator=gen),
+        "lat_data": 100.0 + 700.0 * torch.rand((nl,), generator=gen),
+        "lat_freqs": 1e9 + 3e9 * torch.rand((m,), generator=gen),
+        "lat_up": 1e6 + 1e8 * torch.rand((m,), generator=gen),
+    }
+
+
+def _sharded_body(mesh, env_scores=None) -> dict:
+    """Every sharded call of the phase on this rank of ``mesh``, each with
+    the segment kernel's launches and the all-reduce counts set to 0 just
+    before it and read just after (all but the trainer after one untimed
+    warm call); one shard is the same calls on one rank
+    (the plain functions, by the entry points' fast path). Blocked results
+    are gathered to their global extent, so ranks and the one-rank run
+    compare directly. ``env_scores`` (the one-rank run's action scores)
+    drive the env step; the rank's own ``act`` is compared to them."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core import latency, scenario
+    from repro_torch.core import sharding as sh
+    from repro_torch.core.consensus import ConsensusConfig
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.marl import env as env_mod
+    from repro_torch.core.marl.ddpg import DDPGConfig, act, maddpg_init
+    from repro_torch.core.migration import MigrationConfig
+
+    sr = importlib.import_module("repro_torch.kernels.segment_reduce")
+    train_mod = importlib.import_module("repro_torch.core.marl.train")
+    ts = sh.TwinSharding(mesh)
+    dev = ts.device
+    inp = {k: v.to(dev) for k, v in _sharded_inputs(torch).items()}
+    out = {"results": {}, "wall_ms": {}, "launches": {}, "all_reduce": {}}
+
+    def scoped(n):
+        return ts.scope(n) if ts.n_shards > 1 else contextlib.nullcontext()
+
+    def gather(x, n, axis=0):
+        if ts.n_shards == 1:
+            return x
+        spec = ts.twin_spec(axis % x.ndim, x.ndim)
+        with ts.scope(n):
+            return sh.unshard_tree(x, spec, n)
+
+    def run(name, fn, warm):
+        if warm:  # an untimed, uncounted first call
+            fn()
+        sr.KERNEL.reset()
+        sh.ALL_REDUCE.reset()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        out["wall_ms"][name] = (time.perf_counter() - t0) * 1e3
+        out["launches"][name] = sr.KERNEL.launches
+        out["all_reduce"][name] = [sh.ALL_REDUCE.calls, sh.ALL_REDUCE.bytes]
+        out["results"][name] = res
+
+    n, _, m = SHARD_SEG
+
+    def segment():
+        x, a = inp["seg_values"], inp["seg_assoc"]
+        with scoped(n):
+            xl = sh.localize(x)
+            al = sh.localize(a, fill=m)
+            return {"k16": sr.segment_reduce(xl, al, m),
+                    "k1": sr.segment_reduce(xl[:, 0].contiguous(), al, m),
+                    "max": sr.segment_max(xl, al, m),
+                    "min": sr.segment_min(xl, al, m)}
+
+    lp = latency.LatencyParams()
+    args = (inp["lat_assoc"], inp["lat_b"], inp["lat_data"],
+            inp["lat_freqs"], inp["lat_up"], inp["lat_up"])
+
+    def lat():
+        return {
+            "t_cmp": sh.sharded_t_cmp(ts, lp, *args[:4]),
+            "t_local_agg": sh.sharded_t_local_agg(ts, lp, args[0], args[3]),
+            "t_broadcast": sh.sharded_t_broadcast(ts, lp, args[0], args[4],
+                                                  m),
+            "round_time": sh.sharded_round_time(ts, lp, *args),
+            "round_time_per_bs": sh.sharded_round_time_per_bs(ts, lp,
+                                                              *args),
+            "total_time": sh.sharded_total_time(ts, lp, *args)}
+
+    ecfg = env_mod.EnvConfig(n_twins=SHARD_ENV_N)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    reset = env_mod.sample_reset_draws(gen, ecfg)
+    step = env_mod.sample_step_draws(gen, ecfg)
+    agent = maddpg_init(ecfg, DDPGConfig(), gen)
+
+    def env():
+        st = env_mod.sharded_env_reset(ts, ecfg, reset)
+        obs = env_mod.sharded_observe(ts, ecfg, st)
+        with scoped(ecfg.n_twins), torch.no_grad():
+            a = act(ecfg, agent, obs)
+        scores = gather(a.scores, ecfg.n_twins, axis=1)
+        drive = scores if env_scores is None else env_scores.to(dev)
+        st2, r, info = env_mod.sharded_env_step(
+            ts, ecfg, st, a._replace(scores=drive), step)
+        obs2 = env_mod.sharded_observe(ts, ecfg, st2)
+        return {"scores": scores, "bs_feats": obs.bs_feats,
+                "twin_feats": gather(obs.twin_feats, ecfg.n_twins),
+                "reward": r, "system_time": info["system_time"],
+                "assoc": gather(info["assoc"], ecfg.n_twins),
+                "bs_feats2": obs2.bs_feats}
+
+    def train():
+        tcfg = train_mod.TrainConfig(steps=SHARD_TRAIN_STEPS)
+        st, trace = train_mod.train_sharded(ts, env_mod.EnvConfig(),
+                                            DDPGConfig(), tcfg, 0)
+        sh.assert_replicated([st.agent, st.buf], ts)
+        return {"trace": trace, "actor": st.agent.actor}
+
+    rcfg = env_mod.EnvConfig()
+    batch = scenario.make_batch(0, SHARD_SCENARIOS)
+
+    def runners():
+        return {
+            "baselines": scenario.run_baselines_sharded(ts, rcfg, batch),
+            "migration": scenario.run_migration_sharded(
+                ts, rcfg, MigrationConfig(), batch, SHARD_ROUNDS),
+            "faults": scenario.run_faults_sharded(
+                ts, rcfg, FaultConfig(), batch, SHARD_ROUNDS),
+            "consensus": scenario.run_consensus_sharded(
+                ts, rcfg, ConsensusConfig(quorum_f=1, byzantine_frac=0.2),
+                batch, SHARD_ROUNDS)}
+
+    for name, fn in (("segment", segment), ("latency", lat), ("env", env),
+                     ("train", train), ("runners", runners)):
+        run(name, fn, warm=name != "train")
+    return out
+
+
+def _worst(torch, got, want, tol, path="") -> list:
+    """(ratio, path) of every leaf pair of two result trees, the ratio the
+    largest elementwise |got - want| / (atol + rtol * |want|) with
+    ``(rtol, atol) = tol(path)``: torch.allclose's rule, so a leaf is
+    within its tolerance where its ratio is at most 1. Infinities must
+    sit at the same places with the same signs."""
+    if isinstance(want, dict):
+        return [e for k in want
+                for e in _worst(torch, got[k], want[k], tol, f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        return [e for i, (g, w) in enumerate(zip(got, want))
+                for e in _worst(torch, g, w, tol, f"{path}/{i}")]
+    g = torch.as_tensor(got).double().cpu()
+    w = torch.as_tensor(want).double().cpu()
+    if g.shape != w.shape:
+        raise AssertionError(f"{path}: shape {tuple(g.shape)} against "
+                             f"{tuple(w.shape)}")
+    finite = torch.isfinite(w)
+    if not (torch.equal(torch.isfinite(g), finite)
+            and torch.equal(g[~finite], w[~finite])):
+        raise AssertionError(f"{path}: infinities differ")
+    rtol, atol = tol(path)
+    diff = torch.abs(g[finite] - w[finite])
+    bound = atol + rtol * torch.abs(w[finite])
+    ratio = torch.where(diff == 0, 0.0, diff / bound)
+    return [(float(torch.max(ratio)) if ratio.numel() else 0.0, path)]
+
+
+# (rtol, atol) of the sharded comparisons, elementwise: the reference
+# gate's (benchmarks/bench_scale.py: rtol 1e-5, atol 0; the observations'
+# atol 1e-7; the trainer's trace rtol 2e-3 / atol 1e-5). The segment sums
+# add 2*10^5 unit normals a segment in another order on two ranks, sums of
+# about 450 whose fp32 ulp is 3e-5: their atol is 1e-3, some 30 ulps (the
+# kernel and its plain version differ by up to 1.5e-3 at N = 10^5 in
+# phase_segment_check); the env's action scores come out of the actor
+# after pooled sums, atol 1e-6.
+SHARD_TOLS = {"segment": (SHARD_RTOL, 1e-3), "latency": (SHARD_RTOL, 0.0),
+              "env": (SHARD_RTOL, 1e-7), "runners": (SHARD_RTOL, 0.0),
+              "train": (2e-3, 1e-5), "cli": (SHARD_RTOL, 0.0)}
+
+
+def _shard_tol(name):
+    def tol(path):
+        if name == "env" and path == "/scores":
+            return SHARD_RTOL, 1e-6
+        return SHARD_TOLS[name]
+    return tol
+
+
+def phase_sharded(torch, sr) -> dict:
+    """The twin mesh on the card: 2 ranks on the one H100 with gloo (NCCL
+    cannot put two ranks on one card), every sharded entry point at the
+    sizes of docs/SCALING.md against the same calls on one rank, and the
+    serving CLI ``--shards 2 --dist-backend gloo`` against ``--shards 1``.
+    Per rank and sub-phase: the segment kernel's launches (equal to the
+    one-rank run's: each rank's local reductions run the kernel) and the
+    all-reduce calls and bytes."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve_dtwn
+    from repro_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    one = _sharded_body(mesh_mod.make_twin_mesh(1, device="cuda"))
+    t0 = time.perf_counter()
+    ranks = mesh_mod.spawn_twin_ranks(
+        _sharded_body, 2, backend="gloo", device="cuda",
+        args=(one["results"]["env"]["scores"].cpu(),))
+    spawn_s = time.perf_counter() - t0
+    errs, actor_diff, bad = {}, 0.0, []
+    for name in one["results"]:
+        want = one["results"][name]
+        worst = []
+        for r, rank in enumerate(ranks):
+            got = rank["results"][name]
+            if name == "train":
+                diff = max(float(torch.max(torch.abs(a.cpu() - b.cpu())))
+                           for a, b in zip(tree_leaves(got["actor"]),
+                                           tree_leaves(want["actor"])))
+                if not diff < 1e-4:
+                    bad.append(f"actor parameters differ by {diff} on rank "
+                               f"{r}")
+                actor_diff = max(actor_diff, diff)
+                got, want_r = got["trace"], want["trace"]
+            else:
+                want_r = want
+            if name == "env":
+                if not torch.equal(got["assoc"].cpu(),
+                                   want["assoc"].cpu()):
+                    bad.append(f"env associations differ on rank {r}")
+            pairs = _worst(torch, got, want_r, _shard_tol(name))
+            bad += [f"{name}{path} rank {r}: {e:.3e} times the tolerance "
+                    f"{_shard_tol(name)(path)}" for e, path in pairs if e > 1]
+            worst += pairs
+        errs[name] = max(worst)[0] if worst else 0.0
+        launches = [rk["launches"][name] for rk in ranks]
+        if launches != [one["launches"][name]] * 2 or (
+                name != "latency" and one["launches"][name] <= 0):
+            bad.append(f"{name}: segment launches {launches} on the ranks, "
+                       f"{one['launches'][name]} on one rank")
+        actor = (f", actor within {actor_diff:.3e}" if name == "train"
+                 else "")
+        log(f"[sharded] {name}: worst elementwise error {errs[name]:.3e} "
+            f"of the tolerance {SHARD_TOLS[name]}{actor}; wall "
+            f"{max(rk['wall_ms'][name] for rk in ranks):.1f} ms on 2 ranks "
+            f"against {one['wall_ms'][name]:.1f} ms on one; segment "
+            f"launches per rank {launches}; all-reduce calls/bytes per rank "
+            f"{[rk['all_reduce'][name] for rk in ranks]}")
+    if one["launches"]["latency"] <= 0:
+        bad.append("the latency wrappers launched no segment kernel")
+    log(f"[sharded] 2 gloo ranks spawned and run in {spawn_s:.1f} s; NCCL "
+        f"was not run (one card; NCCL needs one card per rank)")
+
+    argv = CLI_ARGV + ["--dist-backend", "gloo"]
+    cli_one = serve_dtwn.run(argv + ["--shards", "1"], final_state=True)
+    cli_two = serve_dtwn.run(argv + ["--shards", "2"], final_state=True)
+    if cli_one["rc"] != 0 or cli_two["rc"] != 0:
+        raise AssertionError("the serving CLI failed")
+    worst = _worst(torch, {k: torch.as_tensor(v) for k, v in
+                           cli_two["metrics"].items()},
+                   {k: torch.as_tensor(v) for k, v in
+                    cli_one["metrics"].items()}, _shard_tol("cli"))
+    cli_err = max(worst)[0]
+    bad += [f"CLI metric {path}: {e:.3e} times the tolerance "
+            f"{SHARD_TOLS['cli']}" for e, path in worst if e > 1]
+    for k in ("active", "assoc"):
+        if not torch.equal(cli_two["state"][k].cpu(),
+                           cli_one["state"][k].cpu()):
+            bad.append(f"CLI {k} differs")
+    buf_err = max(float(torch.max(torch.abs(cli_two["state"][b][k].cpu()
+                                            - cli_one["state"][b][k].cpu())))
+                  for b in ("twin_params", "twin_mom")
+                  for k in cli_one["state"][b])
+    if not buf_err <= 2e-6:
+        bad.append(f"CLI FL buffers differ by {buf_err}")
+    log(f"[sharded] serve_dtwn {' '.join(argv)} --shards 2 against "
+        f"--shards 1: metrics worst elementwise error {cli_err:.3e} of "
+        f"the tolerance {SHARD_TOLS['cli']}, FL "
+        f"buffers {buf_err:.3e}, masks and associations equal; "
+        f"{cli_two['counts']['wall_s']:.2f} s against "
+        f"{cli_one['counts']['wall_s']:.2f} s for 20 rounds; rank 0 "
+        f"segment launches {cli_two['counts']['segment_launches']} "
+        f"(one rank {cli_one['counts']['segment_launches']}), all-reduce "
+        f"calls/bytes {cli_two['counts']['all_reduce']}")
+    if (cli_two["counts"]["segment_launches"]
+            != cli_one["counts"]["segment_launches"]):
+        bad.append("CLI segment launches differ")
+    log(f"[sharded] phase {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        raise AssertionError("[sharded] " + "; ".join(bad))
+    return {
+        "launches": {k: [rk["launches"][k] for rk in ranks]
+                     for k in one["launches"]},
+        "one_rank_launches": one["launches"],
+        "all_reduce": {k: [rk["all_reduce"][k] for rk in ranks]
+                       for k in one["launches"]},
+        "wall_ms": {k: [rk["wall_ms"][k] for rk in ranks]
+                    for k in one["wall_ms"]},
+        "one_rank_wall_ms": one["wall_ms"], "tol_ratio": errs,
+        "actor_max_abs_diff": actor_diff,
+        "cli": {"tol_ratio": cli_err, "fl_buffer_err": buf_err,
+                "wall_s": [cli_two["counts"]["wall_s"],
+                           cli_one["counts"]["wall_s"]],
+                "launches_rank0": cli_two["counts"]["segment_launches"],
+                "all_reduce_rank0": cli_two["counts"]["all_reduce"]},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2420,6 +2858,7 @@ def main() -> int:
     stream = phase_serve_stream(torch, sr, kernels, data)
     del data
     cli = phase_serve_cli(torch, sr, kernels)
+    sharded = phase_sharded(torch, sr)
     torch.cuda.empty_cache()
     served = phase_serve(torch, kernels, fa, serve)
     phase_serve_kernel_vs_plain(torch, serve)
@@ -2444,6 +2883,12 @@ def main() -> int:
          "serve_launches": stream["launches"],
          "serve_policy_launches": stream["policy_launches"],
          "serve_cli_launches": cli["launches"],
+         "sharded_launches": sharded["launches"],
+         "sharded_one_rank_launches": sharded["one_rank_launches"],
+         "sharded_all_reduce": sharded["all_reduce"],
+         "sharded_cli": sharded["cli"],
+         "sharded_tol_ratio": sharded["tol_ratio"],
+         "sharded_actor_max_abs_diff": sharded["actor_max_abs_diff"],
          "max_abs_err": seg_err, "grad_max_abs_err": grad_err,
          "marl_actor_grad_gpu_vs_cpu": marl_grad_gap,
          "ms": fc1["ms"], "plain_ms": fc1["plain_ms"],

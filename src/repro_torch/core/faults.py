@@ -25,8 +25,10 @@ sum of distances to their nearest same-BS peers (cohort sizes from
 On the card every segment sum launches the hand kernel; the extremes are
 ``scatter_reduce_``, as the reference computes them outside Pallas.
 
-The twin-mesh entry points (``sharded_fault_draws``,
-``sharded_faulty_round_time``) are ROADMAP A10.
+Inside a twin scope the injectors take the GLOBAL draws and slice this
+rank's block (``sharding.localize``, the twin axis last), so a sharded
+round sees the single-device realization; ``sharded_fault_draws`` and
+``sharded_faulty_round_time`` run them over a twin mesh.
 """
 from __future__ import annotations
 
@@ -100,20 +102,21 @@ def straggler_slowdowns(fcfg: FaultConfig, slow_u, slow_exp, *,
     rate = fcfg.straggler_rate if rate is None else rate
     slow_u = torch.as_tensor(slow_u)
     dev = slow_u.device
-    is_slow = sharding.localize(slow_u < _f32(rate, dev), fill=False)
+    is_slow = sharding.localize(slow_u < _f32(rate, dev), axis=-1,
+                                fill=False)
     extra = sharding.localize(
         torch.as_tensor(slow_exp, device=dev) * fcfg.straggler_slowdown,
-        fill=0.0)
+        axis=-1, fill=0.0)
     slow = 1.0 + torch.where(is_slow, extra, 0.0)
-    return sharding.mask_twins(slow, 1.0)
+    return sharding.mask_twins(slow, 1.0, axis=-1)
 
 
 def malicious_mask(fcfg: FaultConfig, u, *, frac=None) -> torch.Tensor:
     """Per-twin attacker flags, (N,) bool, from (N,) uniforms ``u``."""
     frac = fcfg.malicious_frac if frac is None else frac
     u = torch.as_tensor(u)
-    mal = sharding.localize(u < _f32(frac, u.device), fill=False)
-    return sharding.mask_twins(mal, False)
+    mal = sharding.localize(u < _f32(frac, u.device), axis=-1, fill=False)
+    return sharding.mask_twins(mal, False, axis=-1)
 
 
 def fault_draws(fcfg: FaultConfig, slow_u, slow_exp, mal_u, *,
@@ -195,18 +198,50 @@ def straggler_frac(slowdowns) -> torch.Tensor:
     return sharding.twin_mean(hit.to(torch.float32), axis=-1)
 
 
-def sharded_fault_draws(ts, fcfg: FaultConfig, *args, **kw):
-    """:func:`fault_draws` over a twin mesh: ROADMAP A10."""
-    raise NotImplementedError(
-        "sharded_fault_draws needs the twin mesh, which is not ported yet "
-        "(ROADMAP A10)")
+def sharded_fault_draws(ts, fcfg: FaultConfig, slow_u, slow_exp, mal_u, *,
+                        straggler_rate=None, malicious_frac=None):
+    """:func:`fault_draws` over a twin mesh from the global (N,) draws:
+    this rank's blocks ``(slowdowns (n_local,), malicious (n_local,))``,
+    padding rows holding the identities 1.0 and False. The blocks of the
+    ranks, in rank order and unpadded, are the single-device draws;
+    ``n_shards == 1`` is the no-op fast path."""
+    if ts.n_shards == 1:
+        return fault_draws(fcfg, slow_u, slow_exp, mal_u,
+                           straggler_rate=straggler_rate,
+                           malicious_frac=malicious_frac)
+    with ts.scope(torch.as_tensor(slow_u).shape[-1]):
+        return fault_draws(fcfg, slow_u, slow_exp, mal_u,
+                           straggler_rate=straggler_rate,
+                           malicious_frac=malicious_frac)
 
 
-def sharded_faulty_round_time(ts, lp, fcfg: FaultConfig, *args, **kw):
-    """:func:`faulty_round_time` over a twin mesh: ROADMAP A10."""
-    raise NotImplementedError(
-        "sharded_faulty_round_time needs the twin mesh, which is not ported "
-        "yet (ROADMAP A10)")
+def sharded_faulty_round_time(ts, lp: latency.LatencyParams,
+                              fcfg: FaultConfig, draws: FaultDraws, assoc, b,
+                              data_sizes, freqs, uplink, downlink, *,
+                              straggler_rate=None, outage_rate=None,
+                              outage_bad=None, consensus=None
+                              ) -> torch.Tensor:
+    """:func:`faulty_round_time` over a twin mesh: global (N,) ``assoc``,
+    ``b`` (or a scalar) and ``data_sizes``, of which this rank takes its
+    block, (M,) inputs and the global draws; the result is a replicated
+    0-dim tensor."""
+    if ts.n_shards == 1:
+        return faulty_round_time(lp, fcfg, draws, assoc, b, data_sizes, freqs,
+                                 uplink, downlink,
+                                 straggler_rate=straggler_rate,
+                                 outage_rate=outage_rate,
+                                 outage_bad=outage_bad, consensus=consensus)
+    assoc = torch.as_tensor(assoc)
+    n, m = assoc.shape[0], torch.as_tensor(freqs).shape[0]
+    b = torch.as_tensor(b, dtype=torch.float32,
+                        device=assoc.device).expand(n)
+    with ts.scope(n):
+        return faulty_round_time(
+            lp, fcfg, draws, sharding.slice_local(assoc, fill=m),
+            sharding.slice_local(b, fill=0.0),
+            sharding.slice_local(data_sizes, fill=0.0), freqs, uplink,
+            downlink, straggler_rate=straggler_rate, outage_rate=outage_rate,
+            outage_bad=outage_bad, consensus=consensus)
 
 
 # ---------------------------------------------------------------------------

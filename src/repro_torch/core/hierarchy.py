@@ -8,8 +8,8 @@
 Models are parameter dicts. The stacked forms take dicts whose leaves carry
 a leading twin axis and group them through the segment-reduce dispatch, so
 on the card Eq. 4 launches the hand kernel once for the weights and once per
-leaf. The mesh-level ``intra_pod_mean`` / ``cross_pod_mean`` wait for
-ROADMAP A10.
+leaf. The mesh-level ``intra_pod_mean`` / ``cross_pod_mean`` average a
+tree over the ranks of a ``torch.distributed`` group.
 """
 from __future__ import annotations
 
@@ -17,12 +17,15 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.sharding import group_sum
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.fedavg_reduce import stack_rows
 from repro_torch.kernels.segment_reduce import segment_reduce
-from repro_torch.utils.tree import (tree_flatten_concat,
-                                    tree_unflatten_concat, tree_weighted_mean)
+from repro_torch.utils.tree import (tree_flatten_concat, tree_map,
+                                    tree_scale, tree_unflatten_concat,
+                                    tree_weighted_mean)
 
 
 def _device_of(tree) -> torch.device:
@@ -156,3 +159,27 @@ def fedavg_flat_kernel(models: Sequence, data_sizes):
     weights = torch.as_tensor(data_sizes, dtype=torch.float32,
                               device=flats[0].device)
     return tree_unflatten_concat(kops.fedavg_reduce(stacked, weights), spec)
+
+
+# ---------------------------------------------------------------------------
+# mesh-level (the distributed trainer)
+# ---------------------------------------------------------------------------
+
+
+def _group_mean(tree, group):
+    n = dist.get_world_size(group)
+    return tree_scale(tree_map(lambda x: group_sum(x, group), tree), 1.0 / n)
+
+
+def intra_pod_mean(tree, group=None):
+    """Eq. 4 on a mesh: the mean of ``tree`` over the ranks of ``group``,
+    the intra-pod data ranks (default: the world); one SUM all-reduce a
+    leaf."""
+    return _group_mean(tree, group)
+
+
+def cross_pod_mean(tree, group=None):
+    """Eq. 5 on a mesh: the mean of ``tree`` over the ranks of ``group``,
+    one rank per pod (default: the world); the local-SGD trainer calls it
+    every H steps."""
+    return _group_mean(tree, group)

@@ -16,6 +16,11 @@ call per statistic, whose backward carries the actor gradient to the
 winning agent). The optimizer is written out (SGD with momentum after one
 global-norm clip over every agent's gradients), as in the reference, so the
 port stays close to it: no ``torch.optim``.
+
+Inside a twin scope (the sharded trainer) both gradients go through
+``sharding.pmean_in_scope`` where the reference stamps them: a rank's
+gradient holds ``n_shards`` times its own twin block's share, and the mean
+over the ranks is the single-device gradient (``core.sharding``).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import sharding
 from repro_torch.core.marl import networks as nets
 from repro_torch.core.marl.spaces import (Action, Observation,
                                           encode_action, obs_from_compact,
@@ -183,11 +189,13 @@ def maddpg_update_impl(cfg, dcfg: DDPGConfig, st: MADDPGState, batch,
     uses the just-updated critic. Returns ``(new_state, {"critic_loss",
     "actor_loss"})`` with 0-dim device tensors (no host sync)."""
     closs, cgrads = critic_loss_and_grads(cfg, dcfg, st, batch, twin_feats)
+    cgrads = sharding.pmean_in_scope(list(cgrads))
     with torch.no_grad():
         critic, c_opt = _opt_update(st.critic, cgrads, st.critic_opt,
                                     dcfg.critic_lr)
     aloss, agrads = actor_loss_and_grads(cfg, dcfg, st.actor, critic,
                                          batch[0], twin_feats)
+    agrads = sharding.pmean_in_scope(list(agrads))
     with torch.no_grad():
         actor, a_opt = _opt_update(st.actor, agrads, st.actor_opt,
                                    dcfg.actor_lr)

@@ -18,8 +18,13 @@ torch cannot repeat ``jax.random``, so every draw is an argument:
 order, on the generator's device. The step counter ``EnvState.t`` is a host
 int: it counts up by one and is reset at the episode boundary, so the
 trainer never asks the device for it. Every per-BS sum goes through the
-segment-reduce dispatch (the hand kernel on the card). The twin-mesh entry
-points (``sharded_*``, ``env_specs``) are ROADMAP A10.
+segment-reduce dispatch (the hand kernel on the card).
+
+Inside a twin scope (``core.sharding``) the twin-indexed fields are this
+rank's block: a reset slices the global draws, padding rows carry
+``data=0`` and ``assoc=n_bs``, and every per-BS sum all-reduces. The
+``sharded_*`` entry points run the functions above over a twin mesh;
+:func:`env_specs` names the twin-blocked leaves.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from repro_torch.core import faults as faults_mod
 from repro_torch.core import migration as migration_mod
 from repro_torch.core.marl import spaces
 from repro_torch.core.marl.spaces import Action, Observation
+from repro_torch.core.sharding import TWIN_AXIS, P
 from repro_torch.kernels.segment_reduce import segment_count, segment_reduce
 
 
@@ -241,8 +247,11 @@ def observe_flat(cfg: EnvConfig, st: EnvState) -> torch.Tensor:
 
 
 def _round_robin(cfg: EnvConfig, device) -> torch.Tensor:
-    return assoc_mod.average_association(cfg.n_twins, cfg.n_bs,
-                                         device).to(torch.int32)
+    """The round-robin association, this rank's block inside a scope."""
+    return sharding.localize(
+        assoc_mod.average_association(cfg.n_twins, cfg.n_bs,
+                                      device).to(torch.int32),
+        fill=cfg.n_bs)
 
 
 def _distances(cfg: EnvConfig, u) -> torch.Tensor:
@@ -253,9 +262,12 @@ def _distances(cfg: EnvConfig, u) -> torch.Tensor:
 def env_reset(cfg: EnvConfig, draws: ResetDraws) -> EnvState:
     """Fresh env: a new twin population (data sizes uniform in
     [data_min, data_max]), channels and distances, round-robin
-    association."""
+    association. Inside a twin scope ``draws.data_u`` is the global draw
+    and the twin fields are this rank's block."""
     dev = draws.up.device
-    data = cfg.data_min + draws.data_u * (cfg.data_max - cfg.data_min)
+    data = sharding.localize(
+        cfg.data_min + draws.data_u * (cfg.data_max - cfg.data_min),
+        fill=0.0)
     assoc = _round_robin(cfg, dev)
     return EnvState(freqs=bs_frequencies(cfg, dev), data_sizes=data,
                     h_up=draws.up, h_down=draws.down,
@@ -420,30 +432,59 @@ def env_step(cfg: EnvConfig, st: EnvState, actions, draws: StepDraws):
 
 
 # ---------------------------------------------------------------------------
-# twin-axis sharded entry points: ROADMAP A10
+# twin-axis sharded entry points (repro_torch.core.sharding)
 # ---------------------------------------------------------------------------
+#
+# Each wrapper runs the unchanged function above under the rank's twin scope.
+# States and observations come back in the rank's layout: twin-indexed leaves
+# are (n_local,) blocks of the padded population, the rest replicated. Fresh
+# inputs (draws, action scores) are global. One shard is the no-op fast path.
 
 
-def _twin_mesh(what: str):
-    return NotImplementedError(
-        f"{what} needs the twin mesh, which is not ported yet (ROADMAP A10)")
+def env_specs(cfg: EnvConfig) -> EnvState:
+    """Which EnvState leaves are twin-blocked (``P("twin")``) and which are
+    replicated (``P()``); the chain view, when the config has one, is
+    replicated (M-sized)."""
+    chain = (None if cfg.consensus is None else consensus_mod.ChainState(
+        *(P() for _ in consensus_mod.ChainState._fields)))
+    return EnvState(freqs=P(), data_sizes=P(TWIN_AXIS), h_up=P(),
+                    h_down=P(), dist=P(), assoc=P(TWIN_AXIS), t=P(),
+                    chain=chain)
 
 
-def env_specs(cfg: EnvConfig):
-    """Partition specs of the sharded EnvState: ROADMAP A10."""
-    raise _twin_mesh("env_specs")
+def sharded_env_reset(ts, cfg: EnvConfig, draws: ResetDraws) -> EnvState:
+    """:func:`env_reset` over a twin mesh from the global draws: the twin
+    fields are this rank's block of the single-device reset (padding rows
+    ``data=0``, ``assoc=n_bs``), the rest replicated."""
+    if ts.n_shards == 1:
+        return env_reset(cfg, draws)
+    with ts.scope(cfg.n_twins):
+        return env_reset(cfg, draws)
 
 
-def sharded_env_reset(ts, cfg: EnvConfig, draws):
-    """:func:`env_reset` over a twin mesh: ROADMAP A10."""
-    raise _twin_mesh("sharded_env_reset")
+def sharded_observe(ts, cfg: EnvConfig, st: EnvState) -> Observation:
+    """:func:`observe` over a twin mesh on a state in the rank's layout:
+    ``bs_feats`` replicated (all-reduced per-BS statistics),
+    ``twin_feats`` the rank's block."""
+    if ts.n_shards == 1:
+        return observe(cfg, st)
+    with ts.scope(cfg.n_twins):
+        return observe(cfg, st)
 
 
-def sharded_observe(ts, cfg: EnvConfig, st: EnvState):
-    """:func:`observe` over a twin mesh: ROADMAP A10."""
-    raise _twin_mesh("sharded_observe")
-
-
-def sharded_env_step(ts, cfg: EnvConfig, st: EnvState, actions, draws):
-    """:func:`env_step` over a twin mesh: ROADMAP A10."""
-    raise _twin_mesh("sharded_env_step")
+def sharded_env_step(ts, cfg: EnvConfig, st: EnvState, actions: Action,
+                     draws: StepDraws):
+    """:func:`env_step` over a twin mesh: ``st`` in the rank's layout,
+    ``actions`` the structured ``Action`` with the GLOBAL ``scores`` (M, N)
+    (or padded), the global step draws. Rewards and the info scalars are
+    replicated; ``info["assoc"]`` and ``info["b"]`` are the rank's
+    blocks."""
+    if ts.n_shards == 1:
+        return env_step(cfg, st, actions, draws)
+    if not isinstance(actions, Action):
+        raise TypeError("sharded_env_step takes the structured spaces.Action "
+                        "(the flat layout is single-device only)")
+    with ts.scope(cfg.n_twins):
+        actions = actions._replace(
+            scores=sharding.slice_local(actions.scores, axis=-1))
+        return env_step(cfg, st, actions, draws)

@@ -162,25 +162,30 @@ def encode_action(cfg, a: Action, twin_feats: torch.Tensor) -> torch.Tensor:
     through one grouped segment call per statistic, three in all: the
     reference ``vmap``s a per-sample encode, which cannot see through a
     kernel launch.
+
+    Inside a twin scope ``a.scores`` and ``twin_feats`` are this rank's
+    (..., M, N_local) and (N_local, F) blocks: padding columns decode to
+    the dropped id M and leave the soft occupancy's mean, the grouped
+    segment calls all-reduce their (G, M) sums, N is the global count and
+    the encoding is replicated, so the replay buffer needs no twin data.
     """
-    if sharding.in_scope() is not None:
-        raise NotImplementedError(
-            "encode_action inside a twin scope needs the twin mesh, which is "
-            "not ported yet (ROADMAP A10)")
     lead = a.scores.shape[:-2]
-    m, n = a.scores.shape[-2:]
-    scores = a.scores.reshape((-1, m, n))                      # (G, M, N)
+    m, n_local = a.scores.shape[-2:]
+    n = sharding.global_twin_count(n_local)
+    scores = a.scores.reshape((-1, m, n_local))                # (G, M, N)
     g = scores.shape[0]
-    assoc = torch.argmax(scores, dim=1).to(torch.int32)        # (G, N)
+    assoc = sharding.mask_twins(                               # (G, N)
+        torch.argmax(scores, dim=1).to(torch.int32), m, axis=-1)
     win = torch.amax(scores, dim=1)                            # (G, N)
     counts = segment_count_grouped(assoc, m)                   # (G, M)
     k_hard = counts / n
-    k_soft = torch.mean(torch.softmax(scores * _SOFT_TEMP, dim=1), dim=2)
+    k_soft = sharding.twin_mean(torch.softmax(scores * _SOFT_TEMP, dim=1),
+                                axis=2)
     win_mean = segment_reduce_grouped(win, assoc, m) / torch.clamp(
         counts, min=1.0)
     d = twin_feats[:, 0]
-    load = segment_reduce_grouped(d.expand(g, n), assoc, m) / torch.clamp(
-        torch.sum(d), min=1e-9)
+    load = segment_reduce_grouped(d.expand(g, n_local), assoc, m) \
+        / torch.clamp(sharding.twin_sum(d), min=1e-9)
     enc = torch.cat(
         [k_hard[..., None], k_soft[..., None], win_mean[..., None],
          load[..., None], a.b_ctl.reshape(g, m, 1),

@@ -11,8 +11,11 @@ are known on the host, and so is the counter, so the loop never waits for
 the device: every draw is made on the device from one
 ``torch.Generator(device=...)`` (:func:`sample_train_draws`, a fixed order
 each step), and the trace stays on the device until the end.
-``train_host_loop`` is the same loop with a per-step callback. The
-twin-sharded trainer ``train_sharded`` is ROADMAP A10.
+``train_host_loop`` is the same loop with a per-step callback.
+``train_sharded`` runs the same loop on every rank of a twin mesh under the
+rank's twin scope: every draw is made in full on every rank from one
+generator and each rank takes its twin block, so the ranks see the
+single-device draws.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import sharding
 from repro_torch.core.marl import env as env_mod
 from repro_torch.core.marl import spaces
 from repro_torch.core.marl.ddpg import (DDPGConfig, MADDPGState, act,
@@ -71,8 +75,15 @@ def sample_train_draws(gen: torch.Generator, cfg: EnvConfig,
     """Step ``ts``'s draws from ``gen`` on its device, in the field order of
     :class:`TrainDraws`. All are drawn every step, used or not, so the
     stream does not depend on the gates. The uniform sampler's indices
-    cover the rows the buffer will hold after this step's insert."""
-    noise = ou_normals(gen, ts.noise)
+    cover the rows the buffer will hold after this step's insert. Inside a
+    twin scope the OU score normals are drawn (M, N) in full and sliced to
+    this rank's columns (the reference's ``_ou_step``)."""
+    template = ts.noise
+    if sharding.in_scope() is not None:
+        template = template._replace(scores=torch.empty(
+            (cfg.n_bs, cfg.n_twins), device="meta"))
+    noise = ou_normals(gen, template)
+    noise = noise._replace(scores=sharding.localize(noise.scores, axis=-1))
     step = env_mod.sample_step_draws(gen, cfg)
     if tcfg.prioritized:
         sample = torch.rand((dcfg.batch_size,), generator=gen,
@@ -185,12 +196,34 @@ def train_host_loop(cfg: EnvConfig, dcfg: DDPGConfig, tcfg: TrainConfig,
 
 
 def train_sharded(tsh, cfg: EnvConfig, dcfg: DDPGConfig, tcfg: TrainConfig,
-                  seed: int = 0, *, device=None):
-    """:func:`train` with the twin population sharded over a mesh: ROADMAP
-    A10."""
-    raise NotImplementedError(
-        "train_sharded needs the twin mesh, which is not ported yet "
-        "(ROADMAP A10)")
+                  seed: int = 0, *, on_step=None) -> tuple:
+    """:func:`train` with the twin population sharded over a twin mesh, on
+    the mesh's device.
+
+    Each rank runs the whole loop under its twin scope: the env's twin
+    block, its (N_local, F) twin features and the (M, N_local) score noise
+    are the rank's; the MADDPG parameters, their optimizer state, the
+    replay buffer and the generator are replicated (replay rows hold
+    all-reduced (M, E) encodings and compact states, never twin data). The
+    ranks meet only in M-sized all-reduces and the two gradient means of an
+    update (``sharding.pmean_in_scope``). Every draw is the single-device
+    draw, sliced.
+
+    Only the ``"factorized"`` policy shards: the flat one's first layer
+    scales with N. ``n_shards == 1`` is the no-op fast path, ``train``
+    itself. Returns ``(TrainState, trace)`` like :func:`train`, the state's
+    twin leaves in the rank's layout and the trace replicated."""
+    if tsh.n_shards == 1:
+        return train(cfg, dcfg, tcfg, seed, device=tsh.device,
+                     on_step=on_step)
+    if dcfg.policy != "factorized":
+        raise ValueError(
+            f"train_sharded supports the N-independent 'factorized' policy "
+            f"only (got policy={dcfg.policy!r}: its parameters scale with "
+            f"the twin count, so ranks cannot hold replicas)")
+    with tsh.scope(cfg.n_twins):
+        return train(cfg, dcfg, tcfg, seed, device=tsh.device,
+                     on_step=on_step)
 
 
 def marl_train_launches(cfg: EnvConfig, dcfg: DDPGConfig,

@@ -11,8 +11,9 @@ repeat ``jax.random``.
 
 :func:`bs_segments` hands out the per-BS segment boundaries of the sort
 backend's contiguous grouping, which Krum's cohort sizes read
-(``repro_torch.core.faults``). The twin-mesh step ``sharded_migration_step``
-is ROADMAP A10.
+(``repro_torch.core.faults``). Inside a twin scope the step takes the
+GLOBAL draws and slices this rank's block, so ``sharded_migration_step``
+sees the single-device realization.
 """
 from __future__ import annotations
 
@@ -74,11 +75,12 @@ def migration_step(mcfg: MigrationConfig, move_u, gumbel, assoc, data_sizes,
     logits = (-mcfg.locality * ring
               - mcfg.load_weight * load_pen[..., None, :])
     move = sharding.localize(
-        torch.as_tensor(move_u, device=dev) < mcfg.p_move, fill=False)
-    g = sharding.localize(torch.as_tensor(gumbel, device=dev))
+        torch.as_tensor(move_u, device=dev) < mcfg.p_move, axis=-1,
+        fill=False)
+    g = sharding.localize(torch.as_tensor(gumbel, device=dev), axis=-2)
     choice = torch.argmax(logits + g, dim=-1).to(torch.int32)
     out = torch.where(move, choice, assoc.to(torch.int32))
-    return sharding.mask_twins(out, n_bs)
+    return sharding.mask_twins(out, n_bs, axis=-1)
 
 
 def migration_rate(old, new) -> torch.Tensor:
@@ -105,10 +107,20 @@ def migration_flows(old, new, n_bs: int, *,
 
 def sharded_migration_step(ts, mcfg: MigrationConfig, move_u, gumbel, assoc,
                            data_sizes, n_bs: int) -> torch.Tensor:
-    """The migration step over a twin mesh: ROADMAP A10."""
-    raise NotImplementedError(
-        "sharded_migration_step needs the twin mesh, which is not ported "
-        "yet (ROADMAP A10)")
+    """:func:`migration_step` over a twin mesh: global (N,) ``assoc`` and
+    ``data_sizes`` and the global draws, of which this rank takes its
+    block; returns this rank's (n_local,) block of the new association
+    (padding rows keep the out-of-range id ``n_bs``). Rows never cross
+    ranks: the only collective is the (M,) load all-reduce. ``n_shards ==
+    1`` is the no-op fast path."""
+    if ts.n_shards == 1:
+        return migration_step(mcfg, move_u, gumbel, assoc, data_sizes, n_bs)
+    assoc = torch.as_tensor(assoc)
+    with ts.scope(assoc.shape[0]):
+        return migration_step(mcfg, move_u, gumbel,
+                              sharding.slice_local(assoc, fill=n_bs),
+                              sharding.slice_local(data_sizes, fill=0.0),
+                              n_bs)
 
 
 def evolve_association(mcfg: MigrationConfig, move_u, gumbel, assoc,

@@ -29,7 +29,10 @@ serve loop read a row's draws from the same streams, so they score the
 same realization. Per-round streams are drawn round after round, so a
 shorter run draws a prefix of a longer one.
 
-The twin-mesh runners (``run_*_sharded``) are ROADMAP A10.
+The twin-mesh runners (``run_*_sharded``) run the same batched bodies
+under a rank's twin scope (``core.sharding``), with (S, N_local) twin
+blocks: every rank makes the full draws and takes its block, so they score
+the single-device realizations.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import association as assoc_mod
-from repro_torch.core import comms, latency, migration
+from repro_torch.core import comms, latency, migration, sharding
 from repro_torch.core import consensus as consensus_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core.consensus import ConsensusConfig
@@ -336,11 +339,16 @@ def scenario_env(cfg: EnvConfig, draws: ScenarioDraws, data_min, data_max,
     axis, 0-dim knobs) or of a batch (leading axis S everywhere): the
     population, channels and distances from the realization draws, the
     paper's round-robin association. ``chain=True`` adds the Eq. 6 chain
-    view (``cfg.consensus`` must be set; single scenario only)."""
+    view (``cfg.consensus`` must be set; single scenario only). Inside a
+    twin scope the draws are global and the twin fields this rank's block
+    (padding rows ``data=0``, ``assoc=n_bs``)."""
     dev = draws.data_u.device
-    data = sample_population(draws.data_u, data_min, data_max, skew)
-    assoc = assoc_mod.average_association(cfg.n_twins, cfg.n_bs,
-                                          dev).to(torch.int32)
+    data = sharding.mask_twins(
+        sample_population(sharding.localize(draws.data_u, axis=-1),
+                          data_min, data_max, skew), 0.0, axis=-1)
+    assoc = sharding.localize(
+        assoc_mod.average_association(cfg.n_twins, cfg.n_bs,
+                                      dev).to(torch.int32), fill=cfg.n_bs)
     assoc = assoc.expand(data.shape).contiguous()
     wl = cfg.wl
     view = None
@@ -702,42 +710,78 @@ def knob_row(knobs: StreamKnobs, i: int) -> StreamKnobs:
 
 
 # ---------------------------------------------------------------------------
-# twin-mesh runners: ROADMAP A10
+# twin-mesh runners
 # ---------------------------------------------------------------------------
 
 
-def _twin_mesh(what: str):
-    return NotImplementedError(
-        f"{what} needs the twin mesh, which is not ported yet (ROADMAP A10)")
+def _baselines_lite(cfg: EnvConfig, batch: ScenarioBatch,
+                    draws: Optional[ScenarioDraws] = None, *,
+                    device=None) -> dict:
+    """The shardable part of :func:`run_baselines`: the random and average
+    round times and the average association's load diagnostics. The greedy
+    baseline is left out, as in the reference: it assigns twins one at a
+    time against accumulated loads, an O(N)-deep chain a twin mesh cannot
+    split. Under a twin scope the twin arrays are (S, N_local) blocks and
+    every returned value is replicated."""
+    _, draws, st, up, down, b = _setup(cfg, batch, draws,
+                                       ("realization", "random"), 0, device)
+
+    def rt(assoc):
+        return latency.round_time(cfg.lat, assoc, b, st.data_sizes, st.freqs,
+                                  up, down)
+
+    rnd = sharding.localize(draws.rand_assoc.to(torch.int32), axis=-1,
+                            fill=cfg.n_bs)
+    load = assoc_mod.bs_loads(st.assoc, st.data_sizes, cfg.n_bs)
+    return {"random": rt(rnd), "average": rt(st.assoc),
+            "average_imbalance": load["imbalance"],
+            "average_bs_loads": load["loads"],
+            "total_data": sharding.twin_sum(st.data_sizes, axis=-1)}
 
 
-def _baselines_lite_one(cfg, draws, data_min, data_max, skew):
-    """The shardable slice of the baselines (no greedy): ROADMAP A10."""
-    raise _twin_mesh("_baselines_lite_one")
+def _sharded_runner(ts, cfg: EnvConfig, body, *args, **kw) -> dict:
+    """``body(cfg, *args, device=ts.device, **kw)``, a batched runner, on
+    this rank's twin block of every scenario: under the scope of
+    ``cfg.n_twins`` twins, where its draws are sliced and its per-BS sums
+    all-reduced. ``n_shards == 1`` runs the body with no scope (the no-op
+    fast path). The results are replicated."""
+    kw.setdefault("device", ts.device)
+    if ts.n_shards == 1:
+        return body(cfg, *args, **kw)
+    with ts.scope(cfg.n_twins):
+        return body(cfg, *args, **kw)
 
 
-def _sharded_runner(ts, cfg, body, *static_args, n_mapped: int = 4):
-    """The compiled sharded scenario runner: ROADMAP A10."""
-    raise _twin_mesh("_sharded_runner")
+def run_baselines_sharded(ts, cfg: EnvConfig, batch: ScenarioBatch,
+                          draws: Optional[ScenarioDraws] = None) -> dict:
+    """The random and average baselines of :func:`run_baselines` with each
+    scenario's population sharded over a twin mesh: replicated (S,)
+    ``random``, ``average``, ``average_imbalance``, ``total_data`` and (S,
+    M) ``average_bs_loads``; the greedy baseline is omitted
+    (:func:`_baselines_lite`)."""
+    return _sharded_runner(ts, cfg, _baselines_lite, batch, draws)
 
 
-def run_baselines_sharded(ts, cfg, batch, draws=None):
-    """:func:`run_baselines` over a twin mesh: ROADMAP A10."""
-    raise _twin_mesh("run_baselines_sharded")
+def run_migration_sharded(ts, cfg: EnvConfig, mcfg: MigrationConfig,
+                          batch: ScenarioBatch, n_rounds: int = 10,
+                          draws: Optional[ScenarioDraws] = None) -> dict:
+    """:func:`run_migration` over a twin mesh; rows never cross ranks, the
+    results are replicated."""
+    return _sharded_runner(ts, cfg, run_migration, mcfg, batch, n_rounds,
+                           draws)
 
 
-def run_migration_sharded(ts, cfg, mcfg, batch, n_rounds: int = 10,
-                          draws=None):
-    """:func:`run_migration` over a twin mesh: ROADMAP A10."""
-    raise _twin_mesh("run_migration_sharded")
+def run_faults_sharded(ts, cfg: EnvConfig, fcfg: FaultConfig,
+                       batch: ScenarioBatch, n_rounds: int = 10,
+                       draws: Optional[ScenarioDraws] = None) -> dict:
+    """:func:`run_faults` over a twin mesh; the results are replicated."""
+    return _sharded_runner(ts, cfg, run_faults, fcfg, batch, n_rounds, draws)
 
 
-def run_faults_sharded(ts, cfg, fcfg, batch, n_rounds: int = 10, draws=None):
-    """:func:`run_faults` over a twin mesh: ROADMAP A10."""
-    raise _twin_mesh("run_faults_sharded")
-
-
-def run_consensus_sharded(ts, cfg, ccfg, batch, n_rounds: int = 10,
-                          draws=None):
-    """:func:`run_consensus` over a twin mesh: ROADMAP A10."""
-    raise _twin_mesh("run_consensus_sharded")
+def run_consensus_sharded(ts, cfg: EnvConfig, ccfg: ConsensusConfig,
+                          batch: ScenarioBatch, n_rounds: int = 10,
+                          draws: Optional[ScenarioDraws] = None) -> dict:
+    """:func:`run_consensus` over a twin mesh; the results are
+    replicated."""
+    return _sharded_runner(ts, cfg, run_consensus, ccfg, batch, n_rounds,
+                           draws)

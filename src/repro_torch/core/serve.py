@@ -30,8 +30,12 @@ the service's own), so at a fixed full population with churn off K
 streamed rounds reproduce ``scenario.run_faults`` / ``run_migration`` /
 ``run_consensus`` on the same row.
 
-The twin-mesh forms (``serve_specs``, and ``make_serve_init`` /
-``make_round_step`` with a sharding) are ROADMAP A10.
+Over a twin mesh (``make_serve_init`` / ``make_round_step`` /
+``serve_rounds`` with a ``core.sharding.TwinSharding``) every rank holds its
+block of the twin-axis leaves (:func:`serve_specs`), runs the round under
+its twin scope on the global draws (each rank slices its block) and writes
+its state in place; the M-sized leaves, the agent and the replay stay
+replicated.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from repro_torch.core import faults as faults_mod
 from repro_torch.core.marl import env as env_mod
 from repro_torch.core.marl.env import EnvConfig, EnvState, StepDraws
 from repro_torch.core.scenario import ScenarioDraws, StreamKnobs
+from repro_torch.core.sharding import TWIN_AXIS, P
 from repro_torch.utils.device import default_device
 
 __all__ = [
@@ -186,15 +191,21 @@ def churn_step(cfg: EnvConfig, scfg: ServeConfig, draws: RoundDraws, active,
     over live twins, Bernoulli admissions into empty slots, admitted
     populations drawn with the round's knobs (``scenario.sample_population``'s
     law) and a uniform-random association. Returns ``(active', data',
-    assoc', n_joined, n_left)``, the counts 0-dim int32 tensors."""
-    leave = active & (draws.leave_u < scfg.leave_rate)
-    join = ~active & (draws.join_u < scfg.join_rate)
-    new_data = scenario.sample_population(draws.new_data_u, row.data_min,
-                                          row.data_max, row.skew)
+    assoc', n_joined, n_left)``, the counts 0-dim int32 tensors. Inside a
+    twin scope the draws are global and this rank takes its block (padding
+    rows never leave, join or count)."""
+    leave_u = sharding.localize(draws.leave_u, fill=1.0)
+    join_u = sharding.localize(draws.join_u, fill=1.0)
+    leave = active & (leave_u < scfg.leave_rate)
+    join = ~active & (join_u < scfg.join_rate)
+    new_data = scenario.sample_population(
+        sharding.localize(draws.new_data_u, fill=0.0), row.data_min,
+        row.data_max, row.skew)
+    new_assoc = sharding.localize(draws.new_assoc, fill=cfg.n_bs)
     active2, data2, assoc2 = evict(active, data_sizes, assoc, leave,
                                    cfg.n_bs)
     active2, data2, assoc2 = admit(active2, data2, assoc2, join, new_data,
-                                   draws.new_assoc)
+                                   new_assoc)
     return (active2, data2, assoc2, sharding.twin_count(join),
             sharding.twin_count(leave))
 
@@ -219,7 +230,8 @@ def serve_init(cfg: EnvConfig, scfg: ServeConfig, row: StreamKnobs, *,
     ``draws`` (a ``ScenarioDraws`` without the scenario axis: the
     realization, ``outage0_u`` and ``byz_u``) replaces the row ``seed``'s
     streams. ``device`` defaults to ``cuda``. Attach an agent for policy
-    mode with :func:`attach_policy`."""
+    mode with :func:`attach_policy`. Inside a twin scope the twin leaves
+    are this rank's block of the same realization."""
     if scfg.capacity != cfg.n_twins:
         raise ValueError(f"ServeConfig.capacity ({scfg.capacity}) must equal"
                          f" EnvConfig.n_twins ({cfg.n_twins}): the twin"
@@ -235,7 +247,8 @@ def serve_init(cfg: EnvConfig, scfg: ServeConfig, row: StreamKnobs, *,
                                row.skew)
     n, m = cfg.n_twins, cfg.n_bs
     n_live = n if n_live is None else n_live
-    active = torch.arange(n, device=dev) < n_live
+    active = sharding.localize(torch.arange(n, device=dev) < n_live,
+                               fill=False)
     data = torch.where(active, st.data_sizes, 0.0)
     assoc = torch.where(active, st.assoc, m)
     chain = (None if cfg.consensus is None else consensus_mod.chain_init(
@@ -271,27 +284,37 @@ def attach_policy(cfg: EnvConfig, state: ServeState, gen: torch.Generator,
                                spec.enc_dim, device=dev))
 
 
-def _twin_mesh(what: str):
-    return NotImplementedError(
-        f"{what} needs the twin mesh, which is not ported yet (ROADMAP A10)")
-
-
-def _refuse_sharding(ts, what: str) -> None:
-    if ts is not None and getattr(ts, "n_shards", 2) > 1:
-        raise _twin_mesh(what)
-
-
 def make_serve_init(cfg: EnvConfig, scfg: ServeConfig, ts=None,
                     n_live: Optional[int] = None):
     """:func:`serve_init` with ``cfg``, ``scfg`` and ``n_live`` bound:
-    ``fn(row, **kw) -> ServeState``. A twin sharding is ROADMAP A10."""
-    _refuse_sharding(ts, "make_serve_init with a twin sharding")
-    return functools.partial(serve_init, cfg, scfg, n_live=n_live)
+    ``fn(row, **kw) -> ServeState``. With a multi-shard ``ts`` the state is
+    built under the rank's twin scope on the mesh's device (twin leaves
+    blocked per :func:`serve_specs`)."""
+    if ts is None or ts.n_shards == 1:
+        return functools.partial(serve_init, cfg, scfg, n_live=n_live)
+
+    def init(row, **kw):
+        kw.setdefault("device", ts.device)
+        with ts.scope(cfg.n_twins):
+            return serve_init(cfg, scfg, row, n_live=n_live, **kw)
+
+    return init
 
 
 def serve_specs(cfg: EnvConfig, scfg: Optional[ServeConfig] = None):
-    """Partition specs of the ServeState over a twin mesh: ROADMAP A10."""
-    raise _twin_mesh("serve_specs")
+    """Which ServeState leaves are twin-blocked: the env's per
+    ``marl.env.env_specs``, the active mask and, with streamed FL, the
+    model buffers (``fl.stream.fl_specs``); the fault chain, the byzantine
+    mask, the agent, the replay and the round counter are replicated."""
+    if scfg is not None and scfg.fl is not None:
+        from repro_torch.fl.stream import fl_specs
+
+        fl = fl_specs(scfg.fl)
+    else:
+        fl = P()
+    return ServeState(env=env_mod.env_specs(cfg), active=P(TWIN_AXIS),
+                      bad=P(), byz=P(), agent=P(), buf=P(), fl=fl,
+                      round=P())
 
 
 # ---------------------------------------------------------------------------
@@ -442,10 +465,17 @@ def _round_step(cfg: EnvConfig, scfg: ServeConfig, state: ServeState,
 
 def make_round_step(cfg: EnvConfig, scfg: ServeConfig, ts=None):
     """The streaming step ``fn(state, draws, row, plan=None) -> (state',
-    metrics)``; it writes ``state`` in place. A twin sharding is ROADMAP
-    A10."""
-    _refuse_sharding(ts, "make_round_step with a twin sharding")
-    return functools.partial(_round_step, cfg, scfg)
+    metrics)``; it writes ``state`` in place. With a multi-shard ``ts`` the
+    step runs under the rank's twin scope: ``state`` in the rank's layout,
+    the round's draws global, the metrics replicated."""
+    if ts is None or ts.n_shards == 1:
+        return functools.partial(_round_step, cfg, scfg)
+
+    def step(state, draws, row, plan=None):
+        with ts.scope(cfg.n_twins):
+            return _round_step(cfg, scfg, state, draws, row, plan)
+
+    return step
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ from repro_torch.fl.client import make_attack_trainer, make_local_trainer
 from repro_torch.fl.partition import (dirichlet_partition, iid_partition,
                                       scenario_partition)
 from repro_torch.models import cnn
-from repro_torch.utils.device import default_device
+from repro_torch.utils.device import default_device, deterministic_cudnn
 
 
 @dataclasses.dataclass
@@ -319,18 +319,21 @@ class DTWNSystem:
                 pool, size=min(participating_users, pool.size),
                 replace=False)
         twin_models, twin_sizes, twin_bs = [], [], []
-        for u in chosen:
-            shard = self.shards[u]
-            # clamp to the shard, so the batch trained is the b*D_j billed
-            n_use = min(shard.size, max(8, int(b[u] * shard.size)))
-            trainer = self.attacker if self.malicious[u] else self.trainer
-            p_u, _ = trainer(
-                self.params, self._x_dev, self._y_dev,
-                batch_size=cfg.batch_size, local_iters=cfg.local_iters,
-                seed=self._round * 1000 + int(u), rows=shard[:n_use])
-            twin_models.append(p_u)
-            twin_sizes.append(float(self.data_sizes[u]))
-            twin_bs.append(int(assoc[u]))
+        with deterministic_cudnn():  # the same bits every run (C1b)
+            for u in chosen:
+                shard = self.shards[u]
+                # clamp to the shard, so the batch trained is the b*D_j
+                # billed
+                n_use = min(shard.size, max(8, int(b[u] * shard.size)))
+                trainer = (self.attacker if self.malicious[u]
+                           else self.trainer)
+                p_u, _ = trainer(
+                    self.params, self._x_dev, self._y_dev,
+                    batch_size=cfg.batch_size, local_iters=cfg.local_iters,
+                    seed=self._round * 1000 + int(u), rows=shard[:n_use])
+                twin_models.append(p_u)
+                twin_sizes.append(float(self.data_sizes[u]))
+                twin_bs.append(int(assoc[u]))
 
         # --- Eq. 4: per-BS aggregation + blockchain transactions ---
         bs_models, bs_sizes = [], []

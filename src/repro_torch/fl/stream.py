@@ -34,11 +34,17 @@ Aggregation runs over the capacity axis, not the participant axis:
 non-participants carry weight 0 and the out-of-range association id, so
 they drop out of every segment sum. On the card, Eq. 4 is the segment
 kernel at N = capacity over each leaf (``hierarchy.bs_aggregate_stacked``).
-The twin-mesh specs (``fl_specs``) are ROADMAP A10.
+
+Over a twin mesh (``core.sharding``) the capacity-axis buffers are
+twin-blocked and the global model and data replicated (:func:`fl_specs`):
+in the rank's twin scope the participants' rows are gathered by a masked
+gather and a SUM all-reduce, every rank trains the same P participants,
+writes back only the rows it owns, and Eq. 4 over its block of the capacity
+axis is the sharded segment call (the local kernel, then one all-reduce).
+The robust aggregators have no sharded form and refuse a scope.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, NamedTuple
 
@@ -48,10 +54,11 @@ import torch
 from repro_torch.core import consensus as consensus_mod
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import hierarchy, sharding
+from repro_torch.core.sharding import TWIN_AXIS, P
 from repro_torch.fl import client as client_mod
 from repro_torch.models import cnn, tiny
 from repro_torch.optim import make_optimizer
-from repro_torch.utils.device import default_device
+from repro_torch.utils.device import default_device, deterministic_cudnn
 
 __all__ = [
     "FLServeConfig", "FLPlan", "FLState", "MODELS", "get_model",
@@ -124,9 +131,14 @@ class FLState(NamedTuple):
 
 
 def fl_specs(fcfg):
-    """Partition specs of the FL state over a twin mesh: ROADMAP A10."""
-    raise NotImplementedError(
-        "fl_specs needs the twin mesh, which is not ported yet (ROADMAP A10)")
+    """Which :class:`FLState` leaves are twin-blocked over a twin mesh: the
+    capacity-axis buffers and the malicious mask (``P("twin")``); the global
+    model and the data are replicated. ``P()`` when FL is off."""
+    if fcfg is None:
+        return P()
+    return FLState(params=P(), twin_params=P(TWIN_AXIS),
+                   twin_mom=P(TWIN_AXIS), malicious=P(TWIN_AXIS), x=P(),
+                   y=P(), x_eval=P(), y_eval=P())
 
 
 # ---------------------------------------------------------------------------
@@ -144,7 +156,9 @@ def fl_init(fcfg: FLServeConfig, gen, data, active, *, params=None,
     at the global model, empty slots at zero. The state lives on
     ``active``'s device when it is a tensor, else on ``device`` (default
     ``cuda``). ``params`` overrides the global init from ``gen`` (it is
-    copied: the serve loop writes its state in place)."""
+    copied: the serve loop writes its state in place). Inside a twin scope
+    ``active`` is this rank's block and ``malicious`` the global mask, of
+    which the rank keeps its block."""
     if isinstance(active, torch.Tensor) and device is None:
         dev = active.device
     else:
@@ -159,7 +173,10 @@ def fl_init(fcfg: FLServeConfig, gen, data, active, *, params=None,
               for k, v in params.items()}
     n_eval = min(fcfg.n_eval, x_test.shape[0])
     if malicious is None:
-        malicious = np.zeros(cap, bool)
+        malicious = torch.zeros(cap, dtype=torch.bool)
+    else:
+        malicious = sharding.localize(
+            torch.as_tensor(np.asarray(malicious, bool)), fill=False)
 
     def per_twin(p):
         rows = p[None].expand((cap,) + tuple(p.shape))
@@ -171,7 +188,7 @@ def fl_init(fcfg: FLServeConfig, gen, data, active, *, params=None,
         twin_params={k: per_twin(v) for k, v in params.items()},
         twin_mom={k: torch.zeros((cap,) + tuple(v.shape), dtype=v.dtype,
                                  device=dev) for k, v in params.items()},
-        malicious=torch.as_tensor(np.asarray(malicious, bool)).to(dev),
+        malicious=malicious.to(dev),
         x=torch.as_tensor(x).to(dev), y=torch.as_tensor(y).to(dev),
         x_eval=torch.as_tensor(x_test[:n_eval]).to(dev),
         y_eval=torch.as_tensor(y_test[:n_eval]).to(dev))
@@ -275,19 +292,6 @@ def plan_row(plan: FLPlan, t: int) -> FLPlan:
 # ---------------------------------------------------------------------------
 
 
-@contextlib.contextmanager
-def _deterministic_cudnn():
-    """cuDNN restricted to deterministic algorithms: the grouped
-    convolution's backward then gives the same bits on every run, so an
-    overlapped and a blocking stream agree."""
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = prev
-
-
 def _col(mask, ndim: int):
     return mask.reshape((-1,) + (1,) * (ndim - 1))
 
@@ -303,8 +307,12 @@ def fl_round(fcfg: FLServeConfig, fl: FLState, plan: FLPlan, *, active,
     the capacity axis: Eq. 4 (plain or robust), the loss gate on the fixed
     holdout slice, Eq. 5 over accepted BSs (the old global model kept when
     nothing passes). ``fl``'s tensors are written in place; returns ``(fl,
-    metrics)``.
+    metrics)``. Inside a twin scope the capacity-axis arguments are this
+    rank's blocks (module docstring).
     """
+    if sharding.in_scope() is not None and fcfg.aggregator != "fedavg":
+        raise ValueError(f"the {fcfg.aggregator} aggregator has no sharded "
+                         f"form: a twin scope takes aggregator='fedavg'")
     mdl = get_model(fcfg.model)
     opt = make_optimizer("sgd", lr=fcfg.lr, momentum=fcfg.momentum)
     u = plan.users
@@ -320,7 +328,7 @@ def fl_round(fcfg: FLServeConfig, fl: FLState, plan: FLPlan, *, active,
     xb = fl.x[plan.batch]
     yb = fl.y[plan.batch]
     yb = torch.where(mal[:, None, None], client_mod.flip_labels(yb), yb)
-    with _deterministic_cudnn():
+    with deterministic_cudnn():
         p_new, state, _ = client_mod.local_sgd_stacked(mdl.loss_stacked,
                                                        opt, fl.params, xb, yb)
     mom_new = state["mom"]

@@ -20,14 +20,20 @@ strategy is a backend behind one dispatch, as in the reference:
 ``"onehot"``
     The dense ``(N, M)`` one-hot contraction: the parity oracle.
 ``"sharded"``
-    Not ported yet (ROADMAP A10). ``"auto"`` resolves to it inside a
-    ``repro_torch.core.sharding.twin_scope``, so a scoped reduction raises
-    instead of giving the single-device sum.
+    The twin-mesh composition: inside a ``repro_torch.core.sharding`` twin
+    scope each rank reduces its own twin block with the backend
+    ``resolve_backend`` picks for the block (the hand kernel on the card),
+    then one SUM all-reduce over the mesh combines the (M, K) sums, and
+    every rank holds the global result. ``"auto"`` resolves to it inside a
+    scope, so the latency, env and association code shards unchanged.
 
-``resolve_backend`` picks ``"kernel"`` for every CUDA tensor, so each
-per-BS sum of the round runs the hand kernel on the card. On the CPU it
-keeps the reference's CPU rules. The reference's thresholds were measured on
-XLA-CPU and are not a statement about the card.
+``resolve_backend`` picks the hand kernel for every CUDA tensor, as the
+reference's TPU dispatch picks Pallas whatever M is. The kernel's
+shared-memory accumulators hold at most ``MAX_SEGMENTS`` segments, so a
+larger M runs as one launch per window of at most ``MAX_SEGMENTS`` segment
+ids (:func:`_segment_windows`). On the CPU it keeps the reference's CPU
+rules. The reference's thresholds were measured on XLA-CPU and are not a
+statement about the card.
 
 Conventions: ``assoc`` ids outside ``[0, M)`` are dropped by every backend;
 ``values`` is ``(N,)`` or ``(N, ...)`` and trailing dims are flattened to a
@@ -66,9 +72,12 @@ _TILE = 1024
 # no upward import.
 TWIN_AXIS = "twin"
 
-# Scope probe registered by repro_torch.core.sharding: a zero-arg callable
-# returning the active twin-axis name inside a twin scope, else None.
+# Hooks registered by repro_torch.core.sharding: the scope probe, a
+# zero-arg callable returning the active twin-axis name inside a twin scope
+# (else None), and the scope's all-reduce ``fn(x, op)`` with op "sum",
+# "max" or "min".
 _TWIN_AXIS_HOOK = None
+_TWIN_REDUCE_HOOK = None
 
 
 def register_twin_axis_hook(fn) -> None:
@@ -77,13 +86,26 @@ def register_twin_axis_hook(fn) -> None:
     _TWIN_AXIS_HOOK = fn
 
 
+def register_twin_reduce_hook(fn) -> None:
+    """Install the scope's all-reduce ``fn(x, op) -> Tensor``."""
+    global _TWIN_REDUCE_HOOK
+    _TWIN_REDUCE_HOOK = fn
+
+
 def _active_twin_axis():
     return _TWIN_AXIS_HOOK() if _TWIN_AXIS_HOOK is not None else None
 
 
-def _refuse_sharded(what: str) -> None:
-    raise NotImplementedError(
-        f"the sharded {what} is not ported yet (ROADMAP A10)")
+def _twin_reduce(x, op: str):
+    return _TWIN_REDUCE_HOOK(x, op)
+
+
+# The kernel keeps kThreads * M fp32 accumulators in shared memory, so it
+# takes at most (227 KiB - 4 KiB of staged ids) / (256 * 4 B) segments
+# (``seg_reduce_max_segments`` in csrc/segment_reduce.cu); chip_smoke.py
+# holds this copy to the library's. The grouped call packs at most
+# MAX_SEGMENTS // M groups into one launch; a larger M is cut into windows.
+MAX_SEGMENTS = (227 * 1024 - 1024 * 4) // (256 * 4)
 
 KERNEL = CudaKernel("segment_reduce.cu", {
     "seg_reduce_f32": (ctypes.c_int, (
@@ -98,7 +120,8 @@ KERNEL = CudaKernel("segment_reduce.cu", {
 def resolve_backend(n: int, num_segments: int, *, platform=None) -> str:
     """Pick a concrete backend from shape and platform.
 
-    ``"cuda"`` -> the hand kernel. ``"cpu"`` -> the reference's CPU rules:
+    ``"cuda"`` -> always the hand kernel (windowed past ``MAX_SEGMENTS``).
+    ``"cpu"`` -> the reference's CPU rules:
     dense one-hot while the (N, M) mask fits ``_ONEHOT_BYTES_BUDGET``, then
     the kernel's tiled plain version while M <= ``_TILED_MAX_SEGMENTS``,
     scatter-add beyond that. ``platform=None`` means ``"cuda"`` when a card
@@ -183,10 +206,22 @@ def _seg_tiled_plain(values, assoc, num_segments: int, *, block: int = _TILE):
     return acc
 
 
+def _segment_windows(reduce, values, assoc, num_segments: int, cap: int):
+    """``reduce(values, ids, m)`` over windows of at most ``cap`` segments:
+    window ``lo`` reduces ``assoc - lo`` into its ``m = min(cap, M - lo)``
+    rows (ids outside the window fall outside ``[0, m)`` and are dropped),
+    and the windows' rows are stacked in order. One call when M <= cap."""
+    if num_segments <= cap:
+        return reduce(values, assoc, num_segments)
+    return torch.cat([reduce(values, assoc - lo, min(cap, num_segments - lo))
+                      for lo in range(0, num_segments, cap)])
+
+
 def _seg_kernel_forward(values, assoc, num_segments: int):
     """The forward of the ``"kernel"`` backend: a CUDA tensor launches the
-    hand kernel on the current stream, a CPU tensor runs
-    :func:`_seg_tiled_plain`. Any other device, dtype or layout raises."""
+    hand kernel on the current stream, once per window of at most
+    ``MAX_SEGMENTS`` segments, a CPU tensor runs :func:`_seg_tiled_plain`.
+    Any other device, dtype or layout raises."""
     if values.device.type == "cpu" and assoc.device.type == "cpu":
         return _seg_tiled_plain(values, assoc, num_segments)
     if values.device.type != "cuda" or assoc.device != values.device:
@@ -207,22 +242,23 @@ def _seg_kernel_forward(values, assoc, num_segments: int):
         return torch.zeros((num_segments, k), dtype=torch.float32,
                            device=values.device)
     lib = KERNEL.lib()
-    if num_segments > lib.seg_reduce_max_segments():
-        raise ValueError(f"segment kernel takes at most "
-                         f"{lib.seg_reduce_max_segments()} segments, got "
-                         f"{num_segments}")
-    out = torch.empty((num_segments, k), dtype=torch.float32,
-                      device=values.device)
     tiles = lib.seg_reduce_tiles(n, k)
-    scratch = (torch.empty((tiles, num_segments, k), dtype=torch.float32,
-                           device=values.device) if tiles > 1 else None)
-    rc = lib.seg_reduce_f32(values.data_ptr(), assoc.data_ptr(),
-                            out.data_ptr(),
-                            None if scratch is None else scratch.data_ptr(),
-                            n, k, num_segments, stream_ptr())
-    KERNEL.launches += 1
-    KERNEL.check(rc, "segment_reduce kernel")
-    return out
+
+    def launch(values, ids, m):
+        out = torch.empty((m, k), dtype=torch.float32, device=values.device)
+        scratch = (torch.empty((tiles, m, k), dtype=torch.float32,
+                               device=values.device) if tiles > 1 else None)
+        rc = lib.seg_reduce_f32(values.data_ptr(), ids.data_ptr(),
+                                out.data_ptr(),
+                                None if scratch is None
+                                else scratch.data_ptr(),
+                                n, k, m, stream_ptr())
+        KERNEL.launches += 1
+        KERNEL.check(rc, "segment_reduce kernel")
+        return out
+
+    return _segment_windows(launch, values, assoc, num_segments,
+                            lib.seg_reduce_max_segments())
 
 
 class _SegmentReduceKernel(torch.autograd.Function):
@@ -273,12 +309,16 @@ _IMPLS = {
 # ---------------------------------------------------------------------------
 
 
-def _check_backend(backend: str) -> None:
+def _check_backend(backend: str) -> bool:
+    """Validate ``backend``; True when the call takes the ``"sharded"``
+    composition (named, or ``"auto"`` inside a twin scope)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if backend == "sharded" or (backend == "auto"
-                                and _active_twin_axis() is not None):
-        _refuse_sharded("segment-reduce backend")
+    in_scope = _active_twin_axis() is not None
+    if backend == "sharded" and not in_scope:
+        raise ValueError("the sharded segment backend runs only inside a "
+                         "twin scope (core.sharding.TwinSharding.scope)")
+    return backend == "sharded" or (backend == "auto" and in_scope)
 
 
 def _check_shapes(values, assoc):
@@ -300,35 +340,31 @@ def segment_reduce(values, assoc, num_segments: int, *,
             outside [0, num_segments) are dropped.
         num_segments: M, the number of output bins.
         backend: one of ``BACKENDS``; ``"auto"`` resolves from N, M and the
-            tensor's device through :func:`resolve_backend`.
+            tensor's device through :func:`resolve_backend`, or to
+            ``"sharded"`` inside a twin scope.
 
     Returns:
-        (M,) or (M, ...) fp32 sums on ``values``' device.
+        (M,) or (M, ...) fp32 sums on ``values``' device; under
+        ``"sharded"`` ``values`` is this rank's twin block and the result
+        the global sum, on every rank.
     """
-    _check_backend(backend)
+    sharded = _check_backend(backend)
     values = torch.as_tensor(values)
     assoc = torch.as_tensor(assoc, device=values.device)
     _check_shapes(values, assoc)
     n = assoc.shape[0]
     tail = tuple(values.shape[1:])
     if n == 0:
-        return torch.zeros((num_segments,) + tail, dtype=torch.float32,
-                           device=values.device)
-    if backend == "auto":
-        backend = resolve_backend(n, num_segments,
-                                  platform=values.device.type)
-    flat = values.to(torch.float32).reshape(n, -1).contiguous()
-    out = _IMPLS[backend](flat, assoc.to(torch.int32).contiguous(),
-                          num_segments)
-    return out.reshape((num_segments,) + tail)
-
-
-# The kernel keeps kThreads * M fp32 accumulators in shared memory, so it
-# takes at most (227 KiB - 4 KiB of staged ids) / (256 * 4 B) segments
-# (``seg_reduce_max_segments`` in csrc/segment_reduce.cu); chip_smoke.py
-# holds this copy to the library's. The grouped call packs at most
-# MAX_SEGMENTS // M groups into one launch.
-MAX_SEGMENTS = (227 * 1024 - 1024 * 4) // (256 * 4)
+        out = torch.zeros((num_segments,) + tail, dtype=torch.float32,
+                          device=values.device)
+    else:
+        if backend in ("auto", "sharded"):
+            backend = resolve_backend(n, num_segments,
+                                      platform=values.device.type)
+        flat = values.to(torch.float32).reshape(n, -1).contiguous()
+        out = _IMPLS[backend](flat, assoc.to(torch.int32).contiguous(),
+                              num_segments).reshape((num_segments,) + tail)
+    return _twin_reduce(out, "sum") if sharded else out
 
 
 def segment_reduce_grouped(values, assoc, num_segments: int, *,
@@ -340,10 +376,13 @@ def segment_reduce_grouped(values, assoc, num_segments: int, *,
     Group g's ids are offset by ``g * M`` (dropped ids stay dropped), so
     one reduction over G*N twins into G*M segments computes every group.
     The ``"kernel"`` backend launches once per run of at most
-    ``MAX_SEGMENTS // M`` contiguous groups; the other backends take all G
-    in one call. Differentiable in ``values`` like :func:`segment_reduce`.
+    ``MAX_SEGMENTS // M`` contiguous groups (a group of more segments is a
+    call of its own, windowed); the other backends take all G in one call.
+    Differentiable in ``values`` like :func:`segment_reduce`.
+    Inside a twin scope ``values`` and ``assoc`` are this rank's twin
+    blocks and one SUM all-reduce of the (G, M, ...) result follows.
     """
-    _check_backend(backend)
+    sharded = _check_backend(backend)
     values = torch.as_tensor(values)
     assoc = torch.as_tensor(assoc, device=values.device)
     if assoc.ndim != 2 or tuple(values.shape[:2]) != tuple(assoc.shape):
@@ -354,9 +393,10 @@ def segment_reduce_grouped(values, assoc, num_segments: int, *,
     tail = tuple(values.shape[2:])
     m = num_segments
     if g == 0 or n == 0:
-        return torch.zeros((g, m) + tail, dtype=torch.float32,
-                           device=values.device)
-    if backend == "auto":
+        out = torch.zeros((g, m) + tail, dtype=torch.float32,
+                          device=values.device)
+        return _twin_reduce(out, "sum") if sharded else out
+    if backend in ("auto", "sharded"):
         backend = resolve_backend(g * n, g * m, platform=values.device.type)
     per_call = max(MAX_SEGMENTS // m, 1) if backend == "kernel" else g
     flat = values.to(torch.float32).reshape(g, n, -1)
@@ -373,7 +413,8 @@ def segment_reduce_grouped(values, assoc, num_segments: int, *,
                               (g1 - g0) * m)
         outs.append(out.reshape(g1 - g0, m, -1))
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
-    return out.reshape((g, m) + tail)
+    out = out.reshape((g, m) + tail)
+    return _twin_reduce(out, "sum") if sharded else out
 
 
 def segment_count_grouped(assoc, num_segments: int, *,
@@ -397,8 +438,6 @@ def segment_count(assoc, num_segments: int, *, backend: str = "auto"
 
 
 def _segment_extreme(values, assoc, num_segments: int, *, largest: bool):
-    if _active_twin_axis() is not None:  # the reference's pmax/pmin path
-        _refuse_sharded("segment max/min")
     values = torch.as_tensor(values)
     assoc = torch.as_tensor(assoc, device=values.device)
     _check_shapes(values, assoc)
@@ -408,19 +447,22 @@ def _segment_extreme(values, assoc, num_segments: int, *, largest: bool):
     flat = values.to(torch.float32).reshape(n, math.prod(tail))
     out = torch.full((num_segments, flat.shape[1]), fill, dtype=torch.float32,
                      device=values.device)
-    if n == 0:
-        return out.reshape((num_segments,) + tail)
-    valid = (assoc >= 0) & (assoc < num_segments)
-    ids = torch.where(valid, assoc, 0).long()
-    flat = torch.where(valid[:, None], flat, fill)
-    out.scatter_reduce_(0, ids[:, None].expand_as(flat), flat,
-                        reduce="amax" if largest else "amin")
-    return out.reshape((num_segments,) + tail)
+    if n > 0:
+        valid = (assoc >= 0) & (assoc < num_segments)
+        ids = torch.where(valid, assoc, 0).long()
+        flat = torch.where(valid[:, None], flat, fill)
+        out.scatter_reduce_(0, ids[:, None].expand_as(flat), flat,
+                            reduce="amax" if largest else "amin")
+    out = out.reshape((num_segments,) + tail)
+    if _active_twin_axis() is not None:  # the reference's pmax/pmin
+        out = _twin_reduce(out, "max" if largest else "min")
+    return out
 
 
 def segment_max(values, assoc, num_segments: int) -> torch.Tensor:
     """Per-segment maximum, fp32; out-of-range ids dropped, empty segments
-    -inf."""
+    -inf. Inside a twin scope the ranks' maxima combine with one MAX
+    all-reduce."""
     return _segment_extreme(values, assoc, num_segments, largest=True)
 
 
@@ -435,7 +477,9 @@ def segment_median(values, assoc, num_segments: int) -> torch.Tensor:
     The reference's lexsort (segment id first, value second) becomes two
     stable sorts: by value, then by id. Each segment is then a contiguous
     value-sorted slice and two gathers pick its middle elements.
-    Out-of-range ids are dropped; empty segments return 0.
+    Out-of-range ids are dropped; empty segments return 0. It has no
+    collective: inside a twin scope it takes replicated data (the consensus
+    gate's per-BS losses), as in the reference.
     """
     v = torch.as_tensor(values, dtype=torch.float32)
     a = torch.as_tensor(assoc, device=v.device).long()

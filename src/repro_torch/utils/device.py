@@ -1,5 +1,8 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the deterministic
+cuDNN context of local training."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -18,3 +21,17 @@ def default_device(device=None) -> torch.device:
             "repro_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms for the enclosed code.
+    With TF32 off, cuDNN's default convolution backward algorithms on the
+    H100 do not repeat bit for bit (ROADMAP C1b); under this context a
+    round of local training gives the same bits on every run."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev

@@ -9,11 +9,62 @@ controller's parameters in the same order.
 from __future__ import annotations
 
 import math
+import functools
 from typing import Dict, Sequence
 
 import torch
 
 Params = Dict[str, torch.Tensor]
+
+
+def tree_add(a, b):
+    return tree_map(lambda x, y: x + y, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(lambda x, y: x - y, a, b)
+
+
+def tree_scale(a, s):
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_zeros_like(a):
+    return tree_map(torch.zeros_like, a)
+
+
+def tree_cast(a, dtype):
+    """Floating leaves cast to ``dtype``; integer and bool leaves kept."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, a)
+
+
+def tree_dot(a, b) -> torch.Tensor:
+    """Sum over leaves of ``vdot(x, y)``, a 0-dim tensor."""
+    return functools.reduce(torch.add, [
+        torch.vdot(x.reshape(-1), y.reshape(-1))
+        for x, y in zip(tree_leaves(a), tree_leaves(b))])
+
+
+def tree_norm(a) -> torch.Tensor:
+    return torch.sqrt(tree_dot(a, a))
+
+
+def tree_size(a) -> int:
+    """Total number of elements."""
+    return int(sum(x.numel() for x in tree_leaves(a)))
+
+
+def tree_bytes(a) -> int:
+    return int(sum(x.numel() * x.element_size() for x in tree_leaves(a)))
+
+
+def tree_stack(trees: Sequence):
+    """A list of same-structured trees as one tree with a leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(tree, n: int) -> list:
+    return [tree_map(lambda x, i=i: x[i], tree) for i in range(n)]
 
 
 def tree_weighted_mean(trees: Sequence[Params], weights) -> Params:

@@ -46,6 +46,45 @@ def test_segment_kernel_matches_plain_and_repeats(cuda, n, k, m):
     assert torch.equal(out, again)  # fixed summation order
 
 
+@pytest.mark.parametrize("m", [sr.MAX_SEGMENTS, sr.MAX_SEGMENTS + 1, 500])
+def test_per_bs_sums_past_the_kernel_ceiling_match_the_cpu(cuda, m):
+    """ROADMAP C1a: past MAX_SEGMENTS = 223 the card launches the kernel
+    once per window of at most 223 segment ids; held against the plain
+    version on the card and the same call on the CPU. ``migration_flows``
+    at n_bs = 15 (225 pair ids) takes two windows and matches the CPU."""
+    from repro_torch.core import migration
+
+    gen = torch.Generator().manual_seed(m)
+    vals = torch.randn((5000, 3), generator=gen)
+    ids = torch.randint(-1, m + 2, (5000,), generator=gen, dtype=torch.int32)
+    windows = -(-m // sr.MAX_SEGMENTS)
+    before = sr.KERNEL.launches
+    got = sr.segment_reduce(vals.to(cuda), ids.to(cuda), m)
+    assert sr.KERNEL.launches == before + windows
+    torch.testing.assert_close(
+        got, sr._seg_tiled_plain(vals.to(cuda), ids.to(cuda), m),
+        rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.cpu(), sr.segment_reduce(vals, ids, m),
+                               rtol=1e-5, atol=1e-5)
+    # two groups of m segments: one call each
+    gids = ids.reshape(2, 2500).to(cuda)
+    before = sr.KERNEL.launches
+    grouped = sr.segment_reduce_grouped(vals[:, 0].reshape(2, 2500).to(cuda),
+                                        gids, m)
+    assert sr.KERNEL.launches == before + 2 * windows
+    for g in range(2):
+        torch.testing.assert_close(
+            grouped[g], sr._seg_tiled_plain(
+                vals[g * 2500:(g + 1) * 2500, :1].to(cuda), gids[g], m)[:, 0],
+            rtol=1e-5, atol=1e-5)
+    old = torch.randint(0, 15, (1000,), generator=gen)
+    new = torch.randint(0, 15, (1000,), generator=gen)
+    before = sr.KERNEL.launches
+    flows = migration.migration_flows(old.to(cuda), new.to(cuda), 15)
+    assert sr.KERNEL.launches == before + 2
+    assert torch.equal(flows.cpu(), migration.migration_flows(old, new, 15))
+
+
 def test_segment_kernel_refuses_what_it_does_not_take(cuda):
     ids = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):

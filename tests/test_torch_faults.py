@@ -321,13 +321,55 @@ def test_suspect_counts_and_dispersion_fixed_cases():
 
 
 def test_dispatch_rejects_unknown_and_sharded_raise():
+    """The unknown aggregator is refused. The sharded entry points run on 4
+    gloo ranks at the gate's populations and give the reference's
+    single-device draws (exactly) and round time (rtol 1e-5)."""
     st = _t(_stacked(4, 0))
     with pytest.raises(ValueError, match="aggregator"):
         t_faults.robust_bs_aggregate_stacked(st, torch.ones(4),
                                              torch.zeros(4, dtype=torch.int32),
                                              2, aggregator="median")
     assert t_faults.AGGREGATORS == j_faults.AGGREGATORS
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_faults.sharded_fault_draws(None, t_faults.FaultConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_faults.sharded_faulty_round_time(None, None, t_faults.FaultConfig())
+    from torch_sharding_helpers import fault_ranks, join, spawn
+
+    fj = j_faults.FaultConfig(straggler_rate=0.4, outage_rate=0.4,
+                              malicious_frac=0.3)
+    ft = t_faults.FaultConfig(straggler_rate=0.4, outage_rate=0.4,
+                              malicious_frac=0.3)
+    cases, wants = [], []
+    for n, m in [(64, 5), (37, 5), (5, 3)]:
+        rs = np.random.RandomState(n)
+        assoc = rs.randint(0, m, n).astype(np.int32)
+        b = rs.uniform(0.05, 1.0, n).astype(np.float32)
+        data = rs.randint(50, 2000, n).astype(np.float32)
+        freqs = (rs.uniform(1.5, 3.6, m) * 1e9).astype(np.float32)
+        up = rs.uniform(1e6, 5e7, m).astype(np.float32)
+        down = rs.uniform(1e7, 9e7, m).astype(np.float32)
+        key = jax.random.PRNGKey(n)
+        # fault_draws and faulty_round_time split the key alike: the
+        # straggler draws come from its first half
+        k_mal = jax.random.split(key)[1]
+        cases.append({
+            "fcfg": ft, "draws": ref_fault_draws(key, n, m),
+            "mal_u": _np(jax.random.uniform(k_mal, (n,))),
+            "assoc": torch.as_tensor(assoc), "b": torch.as_tensor(b),
+            "data": torch.as_tensor(data), "freqs": torch.as_tensor(freqs),
+            "up": torch.as_tensor(up), "down": torch.as_tensor(down)})
+        slow_j, mal_j = j_faults.fault_draws(fj, key, n)
+        t_j = j_faults.faulty_round_time(
+            j_lat.LatencyParams(), fj, key, jnp.asarray(assoc),
+            jnp.asarray(b), jnp.asarray(data), jnp.asarray(freqs),
+            jnp.asarray(up), jnp.asarray(down))
+        wants.append((n, slow_j, mal_j, t_j))
+    ranks = spawn(fault_ranks, 4, cases)
+    for i, (n, slow_j, mal_j, t_j) in enumerate(wants):
+        np.testing.assert_array_equal(
+            join([r[i]["slow"] for r in ranks], n).numpy(),
+            np.asarray(slow_j))
+        np.testing.assert_array_equal(
+            join([r[i]["mal"] for r in ranks], n).numpy(), np.asarray(mal_j))
+        assert bool((torch.cat([r[i]["slow"] for r in ranks])[n:]
+                     == 1.0).all())  # padding rows: the identity
+        for r in ranks:
+            np.testing.assert_allclose(float(r[i]["t"]), float(t_j),
+                                       rtol=1e-5)

@@ -162,10 +162,56 @@ def test_sampled_draws_cover_the_config(option):
 
 
 def test_sharded_entry_points_raise_a10():
-    _, ct = cfgs(**SMALL)
-    for fn, args in [(t_env.sharded_env_reset, (None, ct, None)),
-                     (t_env.sharded_observe, (None, ct, None)),
-                     (t_env.sharded_env_step, (None, ct, None, None, None)),
-                     (t_env.env_specs, (ct,))]:
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            fn(*args)
+    """``sharded_env_reset``/``observe``/``env_step`` on 4 gloo ranks at the
+    gate's ragged N = 37 (M = 5), under every config, against the
+    reference's single-device reset, observe and step on its own draws:
+    observations and rewards at rtol 1e-5, associations equal; the twin
+    leaves are the ranks' blocks (``env_specs``)."""
+    from torch_sharding_helpers import env_ranks, join, spawn
+    from repro_torch.core.sharding import P
+
+    cases, wants = {}, {}
+    k2 = jax.random.fold_in(KEY, 1)
+    for option in OPTIONS:
+        cj, ct = cfgs(option, n_twins=37, n_bs=5)
+        sc, bc, tc = random_action(cj, np.random.RandomState(4))
+        st_j = j_env.env_reset(cj, KEY)
+        obs_j = j_env.observe(cj, st_j)
+        st2_j, r_j, info_j = j_env.env_step(
+            cj, st_j, j_sp.Action(jnp.asarray(sc), jnp.asarray(bc),
+                                  jnp.asarray(tc)), k2)
+        wants[option] = (st_j, obs_j, st2_j, r_j, info_j,
+                         j_env.observe(cj, st2_j))
+        cases[option] = {"cfg": ct, "reset": reset_draws(cj, KEY),
+                         "action": t_sp.Action(t(sc), t(bc), t(tc)),
+                         "step": step_draws(cj, k2)}
+        specs = t_env.env_specs(ct)
+        assert specs.data_sizes == P("twin") and specs.assoc == P("twin")
+        assert specs.freqs == P() and specs.h_up == P()
+    ranks = spawn(env_ranks, 4, cases)
+    n = 37
+    for option, (st_j, obs_j, st2_j, r_j, info_j, obs2_j) in wants.items():
+        rs = [r[option] for r in ranks]
+        _close(join([r["data"] for r in rs], n), st_j.data_sizes)
+        np.testing.assert_array_equal(
+            join([r["assoc0"] for r in rs], n).numpy(), np.asarray(st_j.assoc))
+        _close(join([r["twin_feats"] for r in rs], n), obs_j.twin_feats,
+               INFO)
+        np.testing.assert_array_equal(
+            join([r["assoc"] for r in rs], n).numpy(),
+            np.asarray(st2_j.assoc))
+        np.testing.assert_array_equal(
+            join([r["info"]["assoc"] for r in rs], n).numpy(),
+            np.asarray(info_j["assoc"]))
+        _close(join([r["info"]["b"] for r in rs], n), info_j["b"], INFO)
+        for r in rs:
+            _close(r["bs_feats"], obs_j.bs_feats, INFO)
+            _close(r["bs_feats2"], obs2_j.bs_feats, INFO)
+            _close(r["reward"], r_j, INFO)
+            for k in ("system_time", "uplink", "migration_rate",
+                      "straggler_frac", "outage_frac", "consensus_time",
+                      "accept_frac"):
+                if k in info_j:
+                    _close(r["info"][k], info_j[k], INFO)
+            if st2_j.chain is not None:
+                _close(r["chain"].stakes, st2_j.chain.stakes, INFO)

@@ -208,7 +208,69 @@ def test_full_width_launch_count():
 
 
 def test_train_sharded_raises_a10():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_train.train_sharded(None, t_env.EnvConfig(), t_ddpg.DDPGConfig(),
-                              t_train.TrainConfig())
-    assert set(OPTIONS) == {"plain", "migration", "faults", "consensus"}
+    """The trainer on 2 gloo ranks with the reference gate's trainer
+    config (N = 23 ragged over 2, an episode boundary, updates through the
+    mesh). 8 ``train_step``s in the ranks' twin scope from the reference's
+    ``train_init`` (bridged), each on the reference's draws of the step,
+    against the reference's ``train_step``: the trace at the gate's rtol
+    2e-3 / atol 1e-5, the associations equal every step, the actor within
+    1e-4 and every agent leaf at rtol 1e-4 / atol 1e-5 (as the
+    single-device test above). ``train_sharded`` from a seed against the
+    single-device ``train`` from the same seed, at the gate's tolerances.
+    The agent and the replay are bitwise equal on both ranks
+    (``assert_replicated``). The flat policy is refused."""
+    from torch_sharding_helpers import join, spawn, train_ranks
+
+    geo = dict(n_twins=23, n_bs=3, bs_freqs_ghz=(2.6, 1.8, 3.6),
+               episode_len=6)
+    cj, cfg = cfgs(**geo)
+    dj = j_ddpg.DDPGConfig(batch_size=8, hidden=(32, 32))
+    dcfg = t_ddpg.DDPGConfig(batch_size=8, hidden=(32, 32))
+    kw = dict(steps=8, warmup=4, replay_capacity=32)
+    tj, tcfg = j_train.TrainConfig(**kw), t_train.TrainConfig(**kw)
+    ts_j = j_train.train_init(cj, dj, tj, jax.random.PRNGKey(5))
+    state0 = _bridge_train_state(ts_j)
+    step_j = jax.jit(functools.partial(j_train.train_step, cj, dj, tj))
+    draws, want, assoc = [], [], []
+    for i in range(tcfg.steps):
+        draws.append(_reference_draws(cj, dj, tj, ts_j))
+        ts_j, m_j = step_j(ts_j, jnp.int32(i))
+        want.append(m_j)
+        assoc.append(np.asarray(ts_j.env.assoc))
+    st1, tr1 = t_train.train(cfg, dcfg, tcfg, 1, device="cpu")
+    ranks = spawn(train_ranks, 2, cfg, dcfg, tcfg, 1, state0, draws)
+    for r in ranks:
+        assert r["replicated"]
+        for i in range(tcfg.steps):
+            for k in want[i]:
+                np.testing.assert_allclose(
+                    float(r["metrics"][i][k]), float(want[i][k]), rtol=2e-3,
+                    atol=1e-5, err_msg=f"step {i} {k}")
+            np.testing.assert_array_equal(r["assoc"][i].numpy(), assoc[i])
+        diff = max(float(np.max(np.abs(a.numpy() - np.asarray(b))))
+                   for a, b in zip(tree_leaves(r["agent"].actor),
+                                   jax.tree_util.tree_leaves(ts_j.agent.actor)))
+        assert diff < 1e-4, diff
+        for a, b in zip(tree_leaves(r["agent"]),
+                        jax.tree_util.tree_leaves(ts_j.agent)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                       atol=1e-5)
+        assert (r["buf"].ptr, r["buf"].size) == (8, 8)
+        # train_sharded from a seed against the single-device train
+        for k in tr1:
+            np.testing.assert_allclose(r["trace"][k].numpy(),
+                                       tr1[k].numpy(), rtol=2e-3, atol=1e-5,
+                                       err_msg=k)
+        diff = max(float(torch.max(torch.abs(a - b))) for a, b in zip(
+            tree_leaves(st1.agent.actor), tree_leaves(r["actor"])))
+        assert diff < 1e-4, diff
+    np.testing.assert_array_equal(
+        join([r["data"] for r in ranks], 23).numpy(),
+        st1.env.data_sizes.numpy())
+
+    class OneShard:
+        n_shards, device = 2, torch.device("cpu")
+
+    with pytest.raises(ValueError, match="factorized"):
+        t_train.train_sharded(OneShard(), cfg,
+                              t_ddpg.DDPGConfig(policy="flat"), tcfg)

@@ -88,6 +88,28 @@ def test_evolve_association_exact():
 
 
 def test_sharded_step_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_mig.sharded_migration_step(None, t_mig.MigrationConfig(), None,
-                                     None, None, None, 3)
+    """``sharded_migration_step`` on 4 gloo ranks at the gate's divisible,
+    ragged and empty-shard populations: the ranks' blocks are the
+    reference's single-device step exactly, and padding rows keep the
+    out-of-range id M."""
+    from torch_sharding_helpers import join, migration_ranks, spawn
+
+    cases, wants = [], []
+    for n, m in [(64, 5), (37, 5), (5, 3)]:
+        assoc, data = _population(n, m, n)
+        key = jax.random.PRNGKey(n)
+        mj = j_mig.MigrationConfig(p_move=0.6)
+        wants.append(j_mig.migration_step(mj, key, jnp.asarray(assoc),
+                                          jnp.asarray(data), m))
+        move_u, gumbel = _draws(key, n, m)
+        cases.append({"mcfg": t_mig.MigrationConfig(p_move=0.6),
+                      "move_u": move_u, "gumbel": gumbel,
+                      "assoc": torch.tensor(assoc),
+                      "data": torch.tensor(data), "n_bs": m})
+    ranks = spawn(migration_ranks, 4, cases)
+    for i, (c, want) in enumerate(zip(cases, wants)):
+        n = c["assoc"].shape[0]
+        blocks = [r[i] for r in ranks]
+        np.testing.assert_array_equal(join(blocks, n).numpy(),
+                                      np.asarray(want))
+        assert bool((torch.cat(blocks)[n:] == c["n_bs"]).all())

@@ -12,6 +12,8 @@ the port: bitwise, with the ``segment_sum`` backend pinned (an
 index-ordered scatter-add, so one scenario's sums do not depend on the
 others in the launch).
 """
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -285,13 +287,47 @@ def test_segment_launches_match_the_formula(monkeypatch, runner):
 
 
 def test_sharded_runners_raise_a10():
-    tb = t_scn.make_batch(0, 2)
-    tc = axis_cfgs()[1]
-    for fn in (lambda: t_scn.run_baselines_sharded(None, tc, tb),
-               lambda: t_scn.run_migration_sharded(None, tc, None, tb),
-               lambda: t_scn.run_faults_sharded(None, tc, None, tb),
-               lambda: t_scn.run_consensus_sharded(None, tc, None, tb),
-               lambda: t_scn._sharded_runner(None, tc, None),
-               lambda: t_scn._baselines_lite_one(tc, None, 0, 0, 0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            fn()
+    """The four ``run_*_sharded`` runners on 4 gloo ranks at the reference
+    gate's runner width (N = 41, M = 7; 5 scenarios, ragged over the mesh),
+    3 rounds with every axis set, against the reference's single-device
+    runners on their own draws at the gate's rtol 1e-5; the shardable
+    baselines' load diagnostics against the reference's single-device
+    ``_baselines_lite_one`` (vmapped over the scenarios), and beside it the
+    port's single-device ``_baselines_lite``."""
+    from torch_sharding_helpers import runner_ranks, spawn
+
+    k = 3
+    jb, tb = batches(5, **ALL_AXES)
+    jc, tc = axis_cfgs("all", n_twins=41, n_bs=7)
+    draws = {
+        "baselines": scenario_draws(jc, jb, ("realization", "random")),
+        "migration": scenario_draws(jc, jb, ("realization", "migration"), k),
+        "faults": scenario_draws(jc, jb, ("realization", "outage_init",
+                                          "faults"), k),
+        "consensus": scenario_draws(jc, jb, ("realization", "byzantine",
+                                             "chain"), k)}
+    configs = {"migration": tc.migration, "faults": tc.faults,
+               "consensus": tc.consensus}
+    ranks = spawn(runner_ranks, 4, tc, configs, tb, draws, k)
+    want = {
+        "baselines": j_scn.run_baselines(jc, jb),
+        "migration": j_scn.run_migration(jc, jc.migration, jb, n_rounds=k),
+        "faults": j_scn.run_faults(jc, jc.faults, jb, n_rounds=k),
+        "consensus": j_scn.run_consensus(jc, jc.consensus, jb, n_rounds=k)}
+    lite_j = jax.vmap(functools.partial(j_scn._baselines_lite_one, jc))(
+        jb.key, jb.data_min, jb.data_max, jb.skew)
+    lite = t_scn._baselines_lite(tc, tb, draws["baselines"], device=CPU)
+    for r in ranks:
+        got = r["baselines"]
+        assert set(got) == {"random", "average", "average_imbalance",
+                            "average_bs_loads", "total_data"}
+        for key in ("random", "average", "total_data"):
+            _close(got[key], want["baselines"][key])
+        for key in ("average_imbalance", "average_bs_loads"):
+            _close(got[key], lite_j[key])
+            _close(got[key], lite[key])
+        for runner in ("migration", "faults", "consensus"):
+            assert set(r[runner]) == set(want[runner])
+            for key, w in want[runner].items():
+                assert tuple(r[runner][key].shape) == np.shape(w), key
+                _close(r[runner][key], w)

@@ -403,18 +403,77 @@ def test_streamed_fl_matches_dtwn_batch_rounds(monkeypatch):
     assert mtr["fl_loss"][-1] < mtr["fl_loss"][0]
 
 
+def _sharded_serve_matches_reference():
+    """The serve loop over a 2-rank gloo mesh (``make_serve_init`` and
+    ``serve_rounds(ts=)``) at a ragged capacity of 13, every axis, churn
+    from 9 live twins, channel dynamics and policy mode (the reference's
+    agent, bridged), 4 rounds on the reference's draws: against the
+    reference's single-device ``serve_rounds`` as
+    ``test_rounds_match_reference`` holds the single-device loop (counts
+    exact, fractions at rtol 1e-6, the rest at rtol 1e-4 in policy mode),
+    masks and associations equal to the reference's; and against the
+    port's single-device loop on the same draws at the gate's rtol 1e-5.
+    The replicated leaves are bitwise equal on both ranks
+    (``assert_replicated`` in the rank body). ``serve_specs`` names the
+    blocked leaves."""
+    from repro_torch.core.sharding import P
+    from torch_sharding_helpers import serve_ranks, spawn
+
+    k, n_live = 4, 9
+    kw = dict(capacity=13, join_rate=0.2, leave_rate=0.2,
+              policy="factorized", evolve_channels=True)
+    jc, tc = axis_cfgs("all", n_twins=13)
+    jscfg, scfg = j_serve.ServeConfig(**kw), t_serve.ServeConfig(**kw)
+    specs = t_serve.serve_specs(tc, scfg)
+    assert specs.active == specs.env.assoc == P("twin")
+    assert specs.bad == specs.agent == specs.buf == P()
+    assert t_serve.serve_specs(tc, t_serve.ServeConfig(
+        capacity=13, fl=t_fls.FLServeConfig())).fl.twin_params == P("twin")
+    jb, tb = batches(3, **ALL_AXES)
+    jrow, trow = knob_rows(jb, tb, jc, tc, 2)
+    key = jb.key[2]
+    st_j = j_serve.serve_init(jc, jscfg, key, jrow, n_live=n_live)
+    st_j = j_serve.attach_policy(jc, st_j, jax.random.PRNGKey(3),
+                                 dcfg=j_ddpg.DDPGConfig(hidden=(16, 16)),
+                                 replay_capacity=16)
+    agent = bridge.maddpg_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, st_j.agent), CPU)
+    st_j, want = j_serve.serve_rounds(jc, jscfg, st_j,
+                                      j_serve.stream_keys(key, k), jrow,
+                                      overlap=False)
+    want = j_serve.stack_metrics(want)
+    init, draws = init_draws(jc, key), round_draws(jc, jscfg, key, k)
+    ranks = spawn(serve_ranks, 2, tc, scfg, trow, init, draws, n_live, agent,
+                  _replay_dims(tc))
+    single, mine = _port_stream(tc, scfg, trow, key, jc, jscfg, k,
+                                n_live=n_live, agent=agent)
+    exact = ("n_active", "n_joined", "n_left")
+    fracs = ("straggler_frac", "outage_frac", "migration_rate",
+             "accept_frac")
+    for r in ranks:
+        _eq(r["active"], st_j.active)
+        _eq(r["assoc"], st_j.env.assoc)
+        _close(r["data"], st_j.env.data_sizes, FRAC)
+        assert (r["round"], r["buf_size"]) == (k, k)
+        assert set(r["metrics"]) == set(want) == set(mine)
+        for key_, w in want.items():
+            got = r["metrics"][key_].numpy()
+            assert got.shape == w.shape, key_
+            if key_ in exact:
+                _eq(got, w)
+            elif key_ in fracs:
+                _close(got, w, FRAC)
+            else:
+                _close(got, w, dict(rtol=1e-4, atol=0))
+            _close(got, mine[key_].numpy())
+        _eq(r["assoc"], single.env.assoc)
+
+
 def test_serve_refusals():
     tc = axis_cfgs()[1]
     scfg = t_serve.ServeConfig(capacity=12)
 
-    class Mesh:
-        n_shards = 2
-
-    for fn in (lambda: t_serve.make_round_step(tc, scfg, Mesh()),
-               lambda: t_serve.make_serve_init(tc, scfg, Mesh()),
-               lambda: t_serve.serve_specs(tc)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            fn()
+    _sharded_serve_matches_reference()
     row = t_scn.knob_row(t_scn.stream_knobs(t_scn.make_batch(0, 1)), 0)
     st = t_serve.serve_init(tc, scfg, row, device=CPU)
     with pytest.raises(ValueError, match="n_rounds"):

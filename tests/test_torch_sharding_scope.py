@@ -1,9 +1,11 @@
 """The port's twin scope (``repro_torch.core.sharding``): outside a scope
 each helper is the identity or a plain reduction and matches the reference
-on shared numpy inputs (reductions at rtol 1e-6, the rest exactly); inside
-a scope every helper that needs the shard index or a collective raises
-``NotImplementedError`` naming ROADMAP A10, as do the segment reductions'
-``"auto"`` dispatch and extremes.
+on shared numpy inputs (reductions at rtol 1e-6, the rest exactly). Inside
+a real scope on 4 gloo ranks (one spawn for the module) every helper, the
+segment reductions' ``"auto"`` dispatch and extremes included, gives the
+reference's single-device answer on the same global arrays, with N
+divisible by the mesh (12) and ragged (11): reductions at rtol 1e-5, the
+rest exactly. A scope with no mesh raises, naming it.
 """
 import importlib
 
@@ -13,7 +15,12 @@ import pytest
 import torch
 
 from repro.core import sharding as j_sh
+from repro.kernels import segment_reduce as j_seg_fn
 from repro_torch.core import sharding as t_sh
+from repro_torch.utils.tree import tree_leaves
+from torch_sharding_helpers import BLOCKED, join, scope_ranks, spawn
+
+j_seg = importlib.import_module("repro.kernels.segment_reduce")
 
 # the package re-exports the function under the module's name
 t_seg = importlib.import_module("repro_torch.kernels.segment_reduce")
@@ -94,43 +101,97 @@ def test_scope_facts_and_nesting():
         t_sh.slice_local(torch.tensor(X))
 
 
-IN_SCOPE_CALLS = {
-    "twin_indices": lambda: t_sh.twin_indices(),
-    "mask_twins": lambda: t_sh.mask_twins(torch.tensor(X), 0.0),
-    "twin_sum": lambda: t_sh.twin_sum(torch.tensor(X)),
-    "twin_count": lambda: t_sh.twin_count(torch.tensor(MASK)),
-    "twin_mean": lambda: t_sh.twin_mean(torch.tensor(X)),
-    "twin_max": lambda: t_sh.twin_max(torch.tensor(X)),
-    "twin_min": lambda: t_sh.twin_min(torch.tensor(X)),
-    "twin_std": lambda: t_sh.twin_std(torch.tensor(X)),
-    "twin_softmax_pool": lambda: t_sh.twin_softmax_pool(
-        torch.tensor(LOGITS), torch.tensor(X)),
-    "pmean_in_scope": lambda: t_sh.pmean_in_scope({"a": torch.ones(2)}),
-    "stamp_replicated": lambda: t_sh.stamp_replicated({"a": torch.ones(2)}),
-    "slice_local": lambda: t_sh.slice_local(torch.tensor(X)),
-    "localize": lambda: t_sh.localize(torch.tensor(X)),
-    "twin_gather": lambda: t_sh.twin_gather(torch.tensor(X),
-                                            torch.tensor([1])),
-    "twin_scatter_rows": lambda: t_sh.twin_scatter_rows(
-        torch.tensor(X), torch.tensor([1]), torch.ones((1, 3))),
-    "segment_reduce": lambda: t_seg.segment_reduce(
-        torch.ones(4), torch.zeros(4, dtype=torch.int32), 2),
-    "segment_max": lambda: t_seg.segment_max(
-        torch.ones(4), torch.zeros(4, dtype=torch.int32), 2),
-}
+def _case(n):
+    rs = np.random.RandomState(n)
+    return {"x": torch.tensor(rs.normal(size=(n, 3)).astype(np.float32)),
+            "logits": torch.tensor(rs.normal(size=(n,)).astype(np.float32)),
+            "mask": torch.tensor(rs.rand(n) < 0.5),
+            "vals": torch.tensor(rs.normal(size=(n,)).astype(np.float32)),
+            "ids": torch.tensor(rs.randint(0, 2, n).astype(np.int32)),
+            "gidx": torch.tensor([1, n - 1, 0, 7]),
+            "sidx": torch.tensor([2, -1, 7, n, 0]),
+            "srows": torch.tensor(rs.normal(size=(5, 3)).astype(np.float32))}
 
 
-@pytest.mark.parametrize("name", sorted(IN_SCOPE_CALLS))
+CASES = {12: _case(12), 11: _case(11)}
+
+
+def _single_device(name, c):
+    """The reference's single-device answer of each in-scope call."""
+    j = {k: jnp.asarray(v.numpy()) for k, v in c.items()}
+    n = c["x"].shape[0]
+    return {
+        "twin_indices": lambda: np.arange(n),
+        "mask_twins": lambda: j_sh.mask_twins(j["x"], -5.0),
+        "twin_sum": lambda: j_sh.twin_sum(j["x"]),
+        "twin_count": lambda: j_sh.twin_count(j["mask"]),
+        "twin_mean": lambda: j_sh.twin_mean(j["x"]),
+        "twin_max": lambda: j_sh.twin_max(j["x"]),
+        "twin_min": lambda: j_sh.twin_min(j["x"]),
+        "twin_std": lambda: j_sh.twin_std(j["x"]),
+        "twin_softmax_pool": lambda: j_sh.twin_softmax_pool(j["logits"],
+                                                            j["x"]),
+        # the mean over the 4 ranks of each rank's own value
+        "pmean_in_scope": lambda: {"a": np.full(2, 1.5, np.float32)},
+        "stamp_replicated": lambda: j_sh.stamp_replicated(
+            {"a": jnp.ones(2)}),
+        "slice_local": lambda: j["x"],
+        "localize": lambda: j["x"],
+        "twin_gather": lambda: j_sh.twin_gather(j["x"], j["gidx"],
+                                                fill=-7.0),
+        "twin_scatter_rows": lambda: j_sh.twin_scatter_rows(
+            j["x"], j["sidx"], j["srows"]),
+        "segment_reduce": lambda: j_seg_fn(j["vals"], j["ids"], 2),
+        "segment_max": lambda: j_seg.segment_max(j["vals"], j["ids"], 2),
+    }[name]()
+
+
+@pytest.fixture(scope="module")
+def in_scope_results():
+    return spawn(scope_ranks, 4, CASES)
+
+
+NAMES = sorted(["twin_indices", "mask_twins", "twin_sum", "twin_count",
+                "twin_mean", "twin_max", "twin_min", "twin_std",
+                "twin_softmax_pool", "pmean_in_scope", "stamp_replicated",
+                "slice_local", "localize", "twin_gather", "twin_scatter_rows",
+                "segment_reduce", "segment_max"])
+
+
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("exact", [True, False])
-def test_in_scope_helpers_raise_a10(name, exact):
-    """Never the single-device answer inside a scope, even where N divides
-    the mesh and no padding row exists."""
-    with t_sh.twin_scope(12 if exact else 11, 3, 4):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            IN_SCOPE_CALLS[name]()
-    # outside the scope again, the same call runs
-    if name not in ("twin_indices", "slice_local"):
-        IN_SCOPE_CALLS[name]()
+def test_in_scope_helpers_raise_a10(name, exact, in_scope_results):
+    """Each helper in a real 4-rank scope gives the single-device answer,
+    where N divides the mesh and where padding rows exist; blocked results
+    are each rank's block, replicated ones equal on every rank."""
+    n = 12 if exact else 11
+    want = _single_device(name, CASES[n])
+    ranks = [r[(name, n)] for r in in_scope_results]
+    if name in BLOCKED:
+        got = join(ranks, n)
+        full = torch.cat(ranks)
+        if name == "mask_twins":  # padding rows hold the fill
+            assert bool((full[n:] == -5.0).all())
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
+    for r in ranks[1:]:  # replicated: bitwise equal on every rank
+        for a, b in zip(tree_leaves(ranks[0]), tree_leaves(r)):
+            assert torch.equal(a, b)
+    got = ranks[0]
+    if isinstance(got, dict):
+        got, want = got["a"], np.asarray(want["a"])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_scope_without_a_mesh_names_it():
+    with t_sh.twin_scope(12, 3, 4):
+        for fn in (t_sh.twin_indices,
+                   lambda: t_sh.twin_sum(torch.ones(3)),
+                   lambda: t_seg.segment_reduce(
+                       torch.ones(3), torch.zeros(3, dtype=torch.int32), 2)):
+            with pytest.raises(RuntimeError, match="no twin mesh"):
+                fn()
 
 
 def test_reference_scope_is_not_touched():

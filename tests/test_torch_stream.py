@@ -30,6 +30,7 @@ from repro_torch.fl import stream as t_fls
 from repro_torch.models import cnn as t_cnn
 from repro_torch.models import tiny as t_tiny
 from repro_torch.optim import make_optimizer
+from repro_torch.core.sharding import P
 from torch_scenario_helpers import pin_backend
 
 CPU = torch.device("cpu")
@@ -240,5 +241,78 @@ def test_fl_churn_update_matches_reference(data):
         _eq(got.twin_params[k], want.twin_params[k])
         _eq(got.twin_mom[k], want.twin_mom[k])
     assert got.twin_params["w1"] is fl_t.twin_params["w1"]  # in place
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        t_fls.fl_specs(t_fls.FLServeConfig())
+    specs = t_fls.fl_specs(t_fls.FLServeConfig())
+    assert specs.twin_params == specs.twin_mom == P("twin")
+    assert specs.malicious == P("twin")
+    assert specs.params == specs.x == specs.x_eval == P()
+    assert t_fls.fl_specs(None) == P()
+
+
+def test_sharded_fl_round_matches_reference(data):
+    """Two FedAvg rounds in the twin scope of 3 gloo ranks at a ragged
+    capacity (11), participants planned across the ranks, two malicious,
+    one inactive: against the single-device port at the gate's tolerances
+    (``fl_loss`` rtol 1e-5, buffers and the global model atol 2e-6) and
+    against the reference as ``test_fl_round_matches_reference`` holds it
+    (loss rtol 1e-5, models atol 1e-5); the global model is bitwise equal
+    on every rank. A robust aggregator refuses a scope."""
+    from torch_sharding_helpers import fl_round_ranks, spawn
+
+    n = 11
+    kw = dict(model="tiny", participants=6, local_iters=2, batch_size=8,
+              n_eval=64)
+    fcfg_j, fcfg_t = j_fls.FLServeConfig(**kw), t_fls.FLServeConfig(**kw)
+    active = np.ones(n, bool)
+    active[4] = False
+    mal = np.zeros(n, bool)
+    mal[[1, 7]] = True
+    fl_j, fl_t = _states(fcfg_j, data, active, malicious=mal)
+    rs = np.random.RandomState(1)
+    sizes = np.where(active, rs.randint(20, 80, n), 0).astype(np.float32)
+    assoc = np.where(active, np.arange(n) % M, M).astype(np.int32)
+    shards = iid_partition(600, n, seed=3)
+    plan_j = j_fls.stream_fl_plan(fcfg_j, shards, 2)
+    plan_t = t_fls.stream_fl_plan(fcfg_t, shards, 2)
+    plans = [t_fls.plan_row(plan_t, t) for t in range(2)]
+    ranks = spawn(fl_round_ranks, 3, fcfg_t, data,
+                  {k: v.clone() for k, v in fl_t.params.items()},
+                  torch.tensor(active), torch.tensor(sizes),
+                  torch.tensor(assoc), mal, plans, M)
+    single = t_fls.fl_init(fcfg_t, None, data, torch.tensor(active),
+                           params=fl_t.params, malicious=mal)
+    for t in range(2):
+        fl_j, mj = j_fls.fl_round(
+            fcfg_j, fl_j, j_fls.plan_row(plan_j, t),
+            active=jnp.asarray(active), data_sizes=jnp.asarray(sizes),
+            assoc=jnp.asarray(assoc), n_bs=M)
+        single, ms = t_fls.fl_round(
+            fcfg_t, single, plans[t], active=torch.tensor(active),
+            data_sizes=torch.tensor(sizes), assoc=torch.tensor(assoc), n_bs=M)
+        for r in ranks:
+            got = r["metrics"][t]
+            _eq(got["fl_n_participants"], mj["fl_n_participants"])
+            _eq(got["fl_accept_frac"], mj["fl_accept_frac"])
+            np.testing.assert_allclose(got["fl_bs_weight"].numpy(),
+                                       ms["fl_bs_weight"].numpy(), rtol=1e-5)
+            for want in (ms["fl_loss"], mj["fl_loss"]):
+                np.testing.assert_allclose(float(got["fl_loss"]),
+                                           float(want), rtol=1e-5)
+    for r in ranks:
+        for k in single.params:
+            np.testing.assert_allclose(r["params"][k].numpy(),
+                                       single.params[k].numpy(), atol=2e-6)
+            np.testing.assert_allclose(r["p"][k].numpy(),
+                                       single.twin_params[k].numpy(),
+                                       atol=2e-6)
+            np.testing.assert_allclose(r["m"][k].numpy(),
+                                       single.twin_mom[k].numpy(), atol=2e-6)
+            np.testing.assert_allclose(r["params"][k].numpy(),
+                                       np.asarray(fl_j.params[k]), atol=1e-5)
+    from repro_torch.core import sharding as t_sh
+
+    with t_sh.twin_scope(n, n, 1):
+        with pytest.raises(ValueError, match="sharded form"):
+            t_fls.fl_round(t_fls.FLServeConfig(aggregator="krum"), single,
+                           plans[0], active=torch.tensor(active),
+                           data_sizes=torch.tensor(sizes),
+                           assoc=torch.tensor(assoc), n_bs=M)
