@@ -64,7 +64,22 @@ sources, in parallel, and drives the port's paths:
   full width (random bf16 weights from a seed, 4 prompts of 4608 tokens,
   last-position logits) with one kernel launch per layer; its logits are
   checked against the plain-SSD forward on the card, a 2-layer fp32 cut on
-  the GPU against the CPU, and the serving CLI steps a short SSM prompt.
+  the GPU against the CPU, and the serving CLI steps a short SSM prompt;
+* the other decoder-only LM families: the flash kernel timed at
+  qwen1.5-4b's attention shape (hd 128, one KV head a query head);
+  ``repro_torch.launch.serve`` serves gemma2-9b (21 local layers with a
+  4096-token window and 21 global ones, hd 256, soft-cap) and qwen1.5-4b
+  (QKV bias) at full width as it serves h2o-danube, one bf16 tensor-core
+  flash launch per layer, their kernel paths checked against the plain
+  attention path; full-width layer cuts of mixtral-8x22b (4 layers, the
+  capacity router at 18,432 tokens), command-r-plus-104b (4 layers, the
+  tied 256,000-row embedding) and deepseek-v2-236b (the dense prologue
+  and 2 MoE layers of 160 experts, MLA on the plain attention path: no
+  flash launch) serve the same prompts and decode a few tokens; jamba's
+  smoke config runs its forward through the SSD and flash kernels, held
+  against the plain forward; and a 2-layer fp32 cut of each family (jamba:
+  its smoke config) on the GPU against the CPU, the MoE routers' choices
+  equal on both.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -74,6 +89,8 @@ line, then ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -128,9 +145,11 @@ FLASH_WIDE_CASES = [
     (2, 200, 200, 4, 4, 256, True, 64, None),
     (1, 64, 64, 2, 1, 160, False, 0, None),
 ]
-# gemma2-9b's prefill attention at one 4608-token prompt: (B, S, Hq, Hkv,
-# hd, window, softcap)
+# gemma2-9b's prefill attention at one 4608-token prompt, and
+# qwen1.5-4b's at the served batch (one KV head a query head, G = 1): (B,
+# S, Hq, Hkv, hd, window, softcap)
 FLASH_GEMMA = (1, 4608, 16, 8, 256, 4096, 50.0)
+FLASH_QWEN = (4, 4608, 20, 20, 128, 0, None)
 # mamba2's path: the reference tests' SSD cases (B, S, H, P, N, chunk) and
 # tolerance, and the short SSM serving run (prompts, prompt length, new
 # tokens)
@@ -886,13 +905,14 @@ def phase_flash_main(torch, fa, m) -> dict:
     return row
 
 
-def phase_flash_gemma(torch, fa) -> dict:
-    """gemma2-9b's prefill attention shape (``FLASH_GEMMA``: hd 256, window,
-    soft-cap) in bf16 through the tensor-core variant: held against the
-    plain version, then kernel, plain and library times. SDPA takes no
-    soft-cap: its time over the same mask is a yardstick only."""
-    B, S, Hq, Hkv, hd, window, cap = FLASH_GEMMA
-    gen = torch.Generator(device="cuda").manual_seed(8)
+def phase_flash_shape(torch, fa, name, shape, seed) -> dict:
+    """One prefill attention shape of an LM family, ``shape`` = (B, S, Hq,
+    Hkv, hd, window, softcap), in bf16 through the tensor-core variant:
+    held against the plain version, then kernel, plain and library times.
+    SDPA takes no soft-cap: where there is one, its time over the same mask
+    is a yardstick only."""
+    B, S, Hq, Hkv, hd, window, cap = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _flash_inputs(torch, gen, B, S, S, Hq, Hkv, hd, torch.bfloat16,
                             q_std=4.0)
     kw = dict(window=window, logit_softcap=cap)
@@ -902,24 +922,28 @@ def phase_flash_gemma(torch, fa) -> dict:
     n_ops = 4 * hd * pairs
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     pos = torch.arange(S, device="cuda")
-    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
-                                             - window)
+    # a causal call without a window takes SDPA's is_causal path (its
+    # fastest); a window needs the mask
+    masking = dict(is_causal=True, attn_mask=None)
+    if window:
+        masking = dict(attn_mask=(pos[None, :] <= pos[:, None])
+                       & (pos[None, :] > pos[:, None] - window))
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def library(qq, kk, vv):  # no soft-cap: a yardstick only
+    def library(qq, kk, vv):  # (B, H, S, hd) views; a yardstick only
         return sdpa(qq.transpose(1, 2), kk.transpose(1, 2),
-                    vv.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+                    vv.transpose(1, 2), enable_gqa=Hq != Hkv, **masking)
 
-    row = _timed(torch, f"flash_attention gemma2-9b shape B={B} S={S} "
+    row = _timed(torch, f"flash_attention {name} shape B={B} S={S} "
                  f"Hq/Hkv={Hq}/{Hkv} hd={hd} window={window} softcap={cap} "
                  f"bf16", lambda *a: fa.flash_attention(*a, **kw),
                  lambda *a: fa.flash_attention_plain(*a, **kw), library,
                  [(q, k, v)], n_bytes, n_ops, BF16_OPS_PER_S, batch=4, reps=3)
     row.update(max_abs_err=err, tflops=n_ops / row["ms"] / 1e9)
-    log(f"[flash] gemma2-9b shape: max_abs_err={err:.3e}; kernel at "
+    log(f"[flash] {name} shape: max_abs_err={err:.3e}; kernel at "
         f"{row['tflops']:.2f} TFLOP/s, {100 * row['bound_ms'] / row['ms']:.1f}% "
         f"of its bf16 bound")
-    del q, k, v, mask
+    del q, k, v, masking
     torch.cuda.empty_cache()
     return row
 
@@ -929,67 +953,147 @@ def _reset(kernels) -> None:
         k.reset()
 
 
-def phase_serve(torch, kernels, fa, serve) -> dict:
-    """The serving CLI at full width, with every count set to 0 just
-    before and read just after."""
-    argv = ["--arch", serve.ARCH, "--full", "--batch", str(serve.BATCH),
+def _attention_layers(cfg) -> int:
+    """The layers whose prefill attention goes through the flash kernel:
+    every GQA layer (MLA's attention takes the plain path)."""
+    if cfg.use_mla:
+        return 0
+    return sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+
+
+def _windows(cfg) -> dict:
+    """The flash calls a prefill makes, by sliding window (0: none)."""
+    out = collections.Counter()
+    for i in range(cfg.n_layers):
+        if cfg.use_mla or not cfg.is_attn_layer(i):
+            continue
+        local = cfg.attn_pattern == "swa" or (
+            cfg.attn_pattern == "local_global" and not cfg.is_global_attn_layer(i))
+        out[cfg.sliding_window if local else 0] += 1
+    return dict(out)
+
+
+@contextlib.contextmanager
+def _flash_calls(calls: list):
+    """Record the (window, head dim, dtype) of every call the attention
+    layers make to ``kernels.ops.flash_attention``; the wrapper counts its
+    launches as always."""
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    inner = ops.flash_attention
+
+    def recorded(q, k, v, **kw):
+        calls.append((kw.get("window", 0), q.shape[-1],
+                      str(q.dtype).removeprefix("torch.")))
+        return inner(q, k, v, **kw)
+
+    ops.flash_attention = recorded
+    try:
+        yield
+    finally:
+        ops.flash_attention = inner
+
+
+# the flash variant a model's dtype launches
+FLASH_VARIANT = {"bfloat16": "bf16_tc", "float32": "fp32"}
+
+
+def _check_calls(torch, label, cfg, launches, calls) -> dict:
+    """The flash kernel launched once per GQA layer, every call in the
+    model's dtype at its head dim, with the config's windows; no other
+    kernel launched. Returns the windows' counts."""
+    n_attn = _attention_layers(cfg)
+    windows = dict(collections.Counter(w for w, _, _ in calls))
+    if launches.pop("flash_attention") != n_attn or len(calls) != n_attn:
+        raise AssertionError(f"{label}: {len(calls)} flash calls, not one per "
+                             f"GQA layer ({n_attn})")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: other kernels launched: {launches}")
+    if windows != _windows(cfg) or any(
+            h != cfg.head_dim or d != cfg.param_dtype for _, h, d in calls):
+        raise AssertionError(f"{label}: flash calls {calls}, expected "
+                             f"windows {_windows(cfg)} at hd {cfg.head_dim}")
+    return windows
+
+
+def _check_generated(torch, label, res, cfg, batch, gen) -> None:
+    tokens, logits = res["tokens"], res["logits"]
+    if tuple(tokens.shape) != (batch, gen):
+        raise AssertionError(f"{label}: generated {tuple(tokens.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: the served logits are not finite")
+    if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{label}: a generated token is outside the "
+                             f"vocabulary")
+    if not torch.equal(logits[..., :cfg.vocab_size].argmax(-1), tokens):
+        raise AssertionError(f"{label}: a generated token is not its "
+                             f"logits' argmax")
+
+
+def phase_serve(torch, kernels, fa, serve, arch=None) -> dict:
+    """The serving CLI at full width on ``arch`` (default: the main path's,
+    ``serve.ARCH``), with every count set to 0 just before and read just
+    after: one flash launch per GQA layer, of the model's variant, at its
+    head dim and windows, and no other kernel; tokens that are their
+    finite logits' argmax."""
+    arch = arch or serve.ARCH
+    argv = ["--arch", arch, "--full", "--batch", str(serve.BATCH),
             "--prompt-len", str(serve.PROMPT_LEN), "--gen", str(serve.GEN)]
     log(f"[serve] python -m repro_torch.launch.serve {' '.join(argv)}")
-    _reset(kernels)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    res = serve.main(argv)
+    calls = []
+    _reset(kernels)
+    with _flash_calls(calls):
+        res = serve.main(argv)
     launches = {k.source.stem: k.launches for k in kernels}
     variants = dict(fa.KERNEL.variant_launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    n_layers = res["cfg"].n_layers
+    cfg = res["cfg"]
+    n = launches["flash_attention"]
     log(f"[serve] kernel launches in the serving run: {json.dumps(launches)}; "
         f"flash variants {json.dumps(variants)}; peak device memory "
         f"{peak:.2f} GiB")
-    if launches["flash_attention"] != n_layers or res["flash_launches"] != n_layers:
-        raise AssertionError(f"the prefill launched the flash kernel "
-                             f"{res['flash_launches']} times "
-                             f"({launches['flash_attention']} in the run), "
-                             f"not once per layer ({n_layers})")
-    if variants["bf16_tc"] != n_layers:
-        raise AssertionError(f"the prefill launched the bf16 tensor-core "
-                             f"variant {variants['bf16_tc']} times, not once "
-                             f"per layer ({n_layers})")
-    tokens, logits = res["tokens"], res["logits"]
-    if tuple(tokens.shape) != (serve.BATCH, serve.GEN):
-        raise AssertionError(f"generated {tuple(tokens.shape)}")
-    if not bool(torch.isfinite(logits).all()):
-        raise AssertionError("the served logits are not finite")
-    if int(tokens.min()) < 0 or int(tokens.max()) >= res["cfg"].vocab_size:
-        raise AssertionError("a generated token is outside the vocabulary")
-    if not torch.equal(logits[..., :res["cfg"].vocab_size].argmax(-1), tokens):
-        raise AssertionError("a generated token is not its logits' argmax")
-    log(f"[serve] ok: {serve.BATCH} x {serve.GEN} tokens, finite logits; "
-        f"prefill {res['prefill_ms']:.1f} ms, decode "
-        f"{res['decode_s'] * 1e3:.1f} ms for {serve.GEN - 1} steps ({res['decode_tok_s']:.1f} tok/s)")
-    return {"launches": launches["flash_attention"],
-            "variant_launches": variants, "prefill_ms": res["prefill_ms"], "decode_s": res["decode_s"],
-            "decode_tok_s": res["decode_tok_s"], "peak_gib": peak}
+    windows = _check_calls(torch, arch, cfg, dict(launches), calls)
+    variant = FLASH_VARIANT[cfg.param_dtype]
+    if variants[variant] != n or res["flash_launches"] != n:
+        raise AssertionError(f"{arch}: flash variants {variants}, "
+                             f"{res['flash_launches']} of the {n} launches in "
+                             f"the prefill")
+    _check_generated(torch, arch, res, cfg, serve.BATCH, serve.GEN)
+    log(f"[serve] ok: {arch}, {cfg.n_layers} layers: {n} {variant} flash "
+        f"launches at hd {cfg.head_dim}, by window {json.dumps(windows)}; "
+        f"{serve.BATCH} x {serve.GEN} tokens, finite logits; prefill "
+        f"{res['prefill_ms']:.1f} ms, decode {res['decode_s'] * 1e3:.1f} ms "
+        f"for {serve.GEN - 1} steps ({res['decode_tok_s']:.1f} tok/s)")
+    return {"launches": n, "variant_launches": variants,
+            "windows": {str(w): c for w, c in windows.items()},
+            "hd": cfg.head_dim, "prefill_ms": res["prefill_ms"],
+            "decode_s": res["decode_s"], "decode_tok_s": res["decode_tok_s"],
+            "peak_gib": peak}
 
 
-def phase_serve_kernel_vs_plain(torch, serve) -> None:
+def phase_serve_kernel_vs_plain(torch, serve, arch=None,
+                                dtypes=(("bfloat16", 5e-2),
+                                        ("float32", 1e-3))) -> None:
     """The first served prompt at B=1 through the flash kernel and through
     the plain attention path (``use_pallas=False``: the chunked version),
     both on the card, with the same weights; last-position logits.
+    ``arch`` defaults to the main path's (``serve.ARCH``).
 
     * bf16, the served model: each path rounds its attention outputs to
       bf16 once, from fp32 sums taken in another order, so a few outputs a
-      layer differ by one bf16 ulp (2^-8 relative), and 24 layers of random
+      layer differ by one bf16 ulp (2^-8 relative), and the layers of random
       weights carry that into the logits. Held to 5% of the logits' largest
-      magnitude (the first chip run measured 1.5%).
+      magnitude (danube's first chip run measured 1.5%).
     * fp32 weights from the same draws: the paths differ only in the order
       of fp32 sums. Held to 1e-3 of the largest magnitude.
     """
     from repro_torch.configs import get_arch_config
     from repro_torch.models import build_model
 
-    for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-3)):
-        cfg = dataclasses.replace(get_arch_config(serve.ARCH),
-                                  param_dtype=dtype)
+    arch = arch or serve.ARCH
+    for dtype, tol in dtypes:
+        cfg = dataclasses.replace(get_arch_config(arch), param_dtype=dtype)
         with torch.inference_mode():
             model, params = serve.random_model(cfg, serve.SEED, "cuda")
             prompt = serve.random_prompts(cfg, serve.BATCH, serve.PROMPT_LEN,
@@ -1001,14 +1105,15 @@ def phase_serve_kernel_vs_plain(torch, serve) -> None:
         err = float((got - plain).abs().max())
         scale = float(plain.abs().max())
         top = torch.topk(plain, 2).values
-        log(f"[serve] {dtype} B=1 last-position logits, flash kernel vs plain "
-            f"path: max_abs_diff {err:.4e}, max |logit| {scale:.4f}, relative "
-            f"{err / scale:.3e} (held to {tol}); argmax {int(got.argmax())} vs "
-            f"{int(plain.argmax())} (plain top-2 gap "
+        log(f"[serve] {arch} {dtype} B=1 last-position logits, flash kernel "
+            f"vs plain path: max_abs_diff {err:.4e}, max |logit| {scale:.4f}, "
+            f"relative {err / scale:.3e} (held to {tol}); argmax "
+            f"{int(got.argmax())} vs {int(plain.argmax())} (plain top-2 gap "
             f"{float(top[0] - top[1]):.4e})")
         if not err <= tol * scale:
-            raise AssertionError(f"{dtype}: kernel and plain paths differ by "
-                                 f"{err} > {tol} of max |logit| {scale}")
+            raise AssertionError(f"{arch} {dtype}: kernel and plain paths "
+                                 f"differ by {err} > {tol} of max |logit| "
+                                 f"{scale}")
         del model, params
         torch.cuda.empty_cache()
 
@@ -1203,7 +1308,7 @@ def _last_logits_close(torch, got, plain, tol, label) -> None:
     err = float((got - plain).abs().max())
     scale = float(plain.abs().max())
     same = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
-    log(f"[mamba] {label}: last-position logits max_abs_diff {err:.4e}, max "
+    log(f"[logits] {label}: last-position logits max_abs_diff {err:.4e}, max "
         f"|logit| {scale:.4f}, relative {err / scale:.3e} (held to {tol}); "
         f"same argmax in {same:.2f} of the rows")
     if not err <= tol * scale:
@@ -1348,15 +1453,257 @@ def phase_ssm_serve(torch, kernels, serve) -> None:
     log(f"[ssm_serve] kernel launches in the run: {json.dumps(launches)}")
     if any(launches.values()):
         raise AssertionError("the stepped SSM serve launched a kernel")
-    tokens, logits = res["tokens"], res["logits"]
-    if tuple(tokens.shape) != (B, G) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"generated {tuple(tokens.shape)}, or logits "
-                             f"not finite")
-    if not torch.equal(logits[..., :res["cfg"].vocab_size].argmax(-1), tokens):
-        raise AssertionError("a generated token is not its logits' argmax")
+    _check_generated(torch, serve.SSM_ARCH, res, res["cfg"], B, G)
     log(f"[ssm_serve] ok: {B} x {G} tokens, finite logits; prefill "
         f"{res['prefill_ms']:.1f} ms ({P} steps), decode "
         f"{res['decode_tok_s']:.1f} tok/s")
+
+
+# ---------------------------------------------------------------------------
+# the other decoder-only LM families (ROADMAP A11.1-A11.5)
+# ---------------------------------------------------------------------------
+
+# served at full width through the serving CLI, at the main path's shape
+LM_SERVED = ("gemma2-9b", "qwen1.5-4b")
+# full-width layer cuts (arch, layers kept), each about 20 GB of bf16
+# weights: mixtral 4 of 56, command-r-plus 4 of 64, deepseek-v2 its dense
+# prologue and 2 MoE layers
+LM_CUTS = (("mixtral-8x22b", 4), ("command-r-plus-104b", 4),
+           ("deepseek-v2-236b", 3))
+LM_CUT_GEN = 4
+# jamba at full width needs ~90 GB of bf16 weights a period (four 16-expert
+# MoE FFNs): it runs at its smoke config
+JAMBA = "jamba-1.5-large-398b"
+LM_ARCHS = LM_SERVED + tuple(a for a, _ in LM_CUTS) + (JAMBA,)
+# GPU against CPU: prompt length, generated tokens
+LM_CHECK = (64, 3)
+
+
+def phase_lm_serve(torch, kernels, fa, serve, arch) -> dict:
+    """``phase_serve`` on ``arch`` at the main path's shape, then its kernel
+    path against the plain attention path at B=1
+    (``phase_serve_kernel_vs_plain``'s bf16 check)."""
+    t_phase = time.perf_counter()
+    out = phase_serve(torch, kernels, fa, serve, arch)
+    torch.cuda.empty_cache()
+    phase_serve_kernel_vs_plain(torch, serve, arch, (("bfloat16", 5e-2),))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[lm_serve] {arch}: phase {out['seconds']:.1f} s")
+    return out
+
+
+def phase_lm_cuts(torch, kernels, serve) -> dict:
+    """Full-width layer cuts (``LM_CUTS``: bf16, random weights from a
+    seed), each serving ``serve.BATCH`` prompts of ``serve.PROMPT_LEN``
+    tokens and ``LM_CUT_GEN`` new ones through ``serve.generate``, every
+    count set to 0 just before and read just after: mixtral with its
+    capacity router (T = 18,432 tokens, 5,760 slots an expert),
+    command-r-plus with its tied 256,000-row embedding, deepseek-v2's MLA
+    (the plain attention path: no flash launch) over its dense prologue
+    and 160-expert MoE layers. Finite logits whose argmax is the generated
+    token."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.models import moe
+
+    out = {}
+    for arch, n_layers in LM_CUTS:
+        t_phase = time.perf_counter()
+        cfg = dataclasses.replace(get_arch_config(arch), n_layers=n_layers)
+        label = f"{arch} cut to {n_layers} layers"
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            model, params = serve.random_model(cfg, serve.SEED, "cuda")
+            n_params = sum(v.numel() for v in _leaves(params))
+            prompts = serve.random_prompts(cfg, serve.BATCH, serve.PROMPT_LEN,
+                                           serve.SEED, "cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            calls = []
+            _reset(kernels)
+            with _flash_calls(calls):
+                res = serve.generate(model, params, prompts, LM_CUT_GEN)
+        launches = {k.source.stem: k.launches for k in kernels}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        windows = _check_calls(torch, label, cfg, dict(launches), calls)
+        _check_generated(torch, label, res, cfg, serve.BATCH, LM_CUT_GEN)
+        T = serve.BATCH * serve.PROMPT_LEN
+        slots = moe.capacity(cfg, T) if cfg.router_mode == "capacity" else None
+        n_dec = serve.BATCH * (LM_CUT_GEN - 1)
+        row = {"n_layers": n_layers, "params": n_params,
+               "launches": launches["flash_attention"],
+               "windows": {str(w): c for w, c in windows.items()},
+               "prefill_ms": res["prefill_ms"],
+               "decode_tok_s": n_dec / res["decode_s"], "peak_gib": peak,
+               "capacity": slots}
+        log(f"[lm_cuts] ok: {label}: {n_params} parameters ({cfg.param_dtype}"
+            f"), {cfg.n_experts} experts top-{cfg.moe_top_k} "
+            f"{cfg.router_mode}, capacity {slots} slots an expert at T={T}; "
+            f"flash launches {row['launches']} by window "
+            f"{json.dumps(row['windows'])}; {serve.BATCH} x {LM_CUT_GEN} "
+            f"tokens, finite logits; prefill {res['prefill_ms']:.1f} ms, "
+            f"decode {row['decode_tok_s']:.1f} tok/s; peak device memory "
+            f"{peak:.2f} GiB")
+        del model, params, prompts, res
+        torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t_phase
+        log(f"[lm_cuts] {label}: {row['seconds']:.1f} s")
+        out[f"{arch}/{n_layers}"] = row
+    return out
+
+
+def phase_jamba(torch, kernels, fa, serve) -> dict:
+    """jamba's smoke config (2 layers: a mamba and an attention mixer, a
+    dense and a 4-expert MoE FFN, d 256) on the card at the main path's
+    ``serve.BATCH`` x ``serve.PROMPT_LEN``: ``forward(use_pallas=True)``,
+    its scoring path, launches the SSD kernel once a mamba mixer and the
+    flash kernel once an attention layer (counts set to 0 just before the
+    bf16 forward and read just after); its last-position logits are held
+    against the plain forward (``use_pallas=False``), at 5% of the largest
+    logit in bf16 and 1e-3 in fp32 (``phase_mamba_forward``'s checks)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import block_layout
+
+    t_phase = time.perf_counter()
+    out = {}
+    for dtype, tol in (("bfloat16", 5e-2), ("float32", 1e-3)):
+        cfg = dataclasses.replace(get_smoke_config(JAMBA), param_dtype=dtype)
+        n_blocks = block_layout(cfg)[1]
+        with torch.inference_mode():
+            model, params = serve.random_model(cfg, serve.SEED, "cuda")
+            tokens = serve.random_prompts(cfg, serve.BATCH, serve.PROMPT_LEN,
+                                          serve.SEED, "cuda")
+            torch.cuda.synchronize()
+            calls = []
+            _reset(kernels)
+            with _flash_calls(calls):
+                logits, aux = model.forward(params, {"tokens": tokens},
+                                            last_only=True)
+            torch.cuda.synchronize()
+            launches = {k.source.stem: k.launches for k in kernels}
+            variants = dict(fa.KERNEL.variant_launches)
+            plain, plain_aux = build_model(cfg, use_pallas=False).forward(
+                params, {"tokens": tokens}, last_only=True)
+        label = f"jamba smoke {dtype} B={serve.BATCH} S={serve.PROMPT_LEN}"
+        ssd_n = launches.pop("ssd_scan")
+        if ssd_n != n_blocks * (cfg.attn_every - 1):
+            raise AssertionError(f"{label}: {ssd_n} SSD launches, not one "
+                                 f"per mamba mixer")
+        variant = FLASH_VARIANT[dtype]
+        _check_calls(torch, label, cfg, launches, calls)
+        if variants[variant] != n_blocks:
+            raise AssertionError(f"{label}: flash variants {variants}")
+        if not (bool(torch.isfinite(logits).all())
+                and math.isfinite(float(aux))):
+            raise AssertionError(f"{label}: logits or aux not finite")
+        _last_logits_close(torch, logits, plain, tol,
+                           f"{label}, kernels vs plain forward")
+        aux_gap = abs(float(aux) - float(plain_aux))
+        log(f"[jamba] {label}: SSD launches {ssd_n}, flash {len(calls)} "
+            f"({variant}); aux {float(aux):.6f}, plain {float(plain_aux):.6f}")
+        if dtype == "bfloat16":
+            out.update(ssd_launches=ssd_n, flash_launches=len(calls),
+                       aux_gap=aux_gap)
+        del model, params
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[jamba] phase {out['seconds']:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def _router_calls(torch, calls: list):
+    """Record, for every ``moe.router_probs`` call, the chosen experts and
+    the router's top-k margin (the k-th probability less the next) of each
+    token, on the host."""
+    moe = importlib.import_module("repro_torch.models.moe")
+    inner = moe.router_probs
+
+    def recorded(cfg, p, x):
+        gates, idx, aux = inner(cfg, p, x)
+        probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+        top = torch.topk(probs, cfg.moe_top_k + 1, dim=-1).values
+        calls.append((idx.cpu(), (top[:, -2] - top[:, -1]).cpu()))
+        return gates, idx, aux
+
+    moe.router_probs = recorded
+    try:
+        yield
+    finally:
+        moe.router_probs = inner
+
+
+def phase_lm_gpu_vs_cpu(torch, serve) -> dict:
+    """Each family of ``LM_ARCHS`` on the GPU against the CPU: a 2-layer
+    fp32 cut at full width (jamba: its smoke config, 2 layers fp32), one
+    state drawn on the card and copied to the CPU, ``LM_CHECK`` = (prompt,
+    new tokens) through ``serve.generate`` (and jamba's kernel forward).
+    First the MoE routers' chosen experts, call by call, must be equal on
+    both devices (a flip on a near-tie is reported with the router's top-k
+    margin at that token); then the same tokens and logits within 1e-4,
+    the CPU parity tests' tolerance for fp32 (tf32 off)."""
+    from repro_torch.configs import get_arch_config, get_smoke_config
+
+    P, G = LM_CHECK
+    out = {}
+    for arch in LM_ARCHS:
+        t0 = time.perf_counter()
+        if arch == JAMBA:
+            cfg = get_smoke_config(arch)
+        else:
+            cfg = dataclasses.replace(get_arch_config(arch), n_layers=2,
+                                      param_dtype="float32")
+        res, fwd, routes = {}, {}, {}
+        with torch.inference_mode():
+            model, params = serve.random_model(cfg, 1, "cuda")
+            prompt = serve.random_prompts(cfg, 1, P, 1, "cuda")
+            for dev in ("cuda", "cpu"):
+                p = params if dev == "cuda" else _to(params, "cpu")
+                routes[dev] = []
+                with _router_calls(torch, routes[dev]):
+                    if cfg.attn_every:  # the hybrid's kernel path
+                        fwd[dev], _ = model.forward(
+                            p, {"tokens": prompt.to(dev)}, last_only=True)
+                    res[dev] = serve.generate(model, p, prompt.to(dev), G)
+                del p
+            del model, params
+        torch.cuda.empty_cache()
+        gpu, cpu = routes["cuda"], routes["cpu"]
+        if len(gpu) != len(cpu):
+            raise AssertionError(f"{arch}: {len(gpu)} router calls on the GPU, "
+                                 f"{len(cpu)} on the CPU")
+        margin = min((float(m.min()) for _, m in cpu), default=None)
+        for call, ((gi, gm), (ci, cm)) in enumerate(zip(gpu, cpu)):
+            if not torch.equal(gi, ci):
+                bad = (gi != ci).any(-1).nonzero()[:, 0]
+                raise AssertionError(
+                    f"{arch}: router call {call} chose other experts on the "
+                    f"GPU at tokens {bad.tolist()}; top-k margins there "
+                    f"{cm[bad].tolist()} (CPU), {gm[bad].tolist()} (GPU)")
+        if not torch.equal(res["cuda"]["tokens"].cpu(), res["cpu"]["tokens"]):
+            raise AssertionError(f"{arch}: GPU and CPU generated different "
+                                 f"tokens")
+        err = float((res["cuda"]["logits"].cpu() - res["cpu"]["logits"])
+                    .abs().max())
+        torch.testing.assert_close(res["cuda"]["logits"].cpu(),
+                                   res["cpu"]["logits"], rtol=1e-4, atol=1e-4)
+        row = {"logits_max_abs_diff": err, "router_calls": len(gpu),
+               "router_min_margin": margin}
+        if fwd:
+            row["forward_max_abs_diff"] = float(
+                (fwd["cuda"].cpu() - fwd["cpu"]).abs().max())
+            torch.testing.assert_close(fwd["cuda"].cpu(), fwd["cpu"],
+                                       rtol=1e-4, atol=1e-4)
+        row["seconds"] = time.perf_counter() - t0
+        log(f"[lm_gpu_vs_cpu] ok (tf32 off): {cfg.name} {cfg.n_layers} layers "
+            f"fp32, prompt {P}, {G} tokens {res['cpu']['tokens'].tolist()}; "
+            f"logits max abs difference {err:.3e} <= 1e-4"
+            + (f", forward {row['forward_max_abs_diff']:.3e}" if fwd else "")
+            + (f"; {len(gpu)} router calls, the same experts, smallest top-k "
+               f"margin {margin:.3e}" if gpu else "")
+            + f"; {row['seconds']:.1f} s")
+        out[arch] = row
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2837,7 +3184,8 @@ def main() -> int:
     phase_flash_check(torch, fa)
     main_call = flash_main(serve)
     flash = phase_flash_main(torch, fa, main_call)
-    gemma = phase_flash_gemma(torch, fa)
+    gemma = phase_flash_shape(torch, fa, "gemma2-9b", FLASH_GEMMA, 8)
+    qwen = phase_flash_shape(torch, fa, "qwen1.5-4b", FLASH_QWEN, 9)
     phase_ssd_check(torch, ssd)
     ssd_call = ssd_main(serve)
     scan = phase_ssd_main(torch, ssd, ssd_call)
@@ -2866,6 +3214,14 @@ def main() -> int:
     forward = phase_mamba_forward(torch, kernels, serve)
     phase_mamba_gpu_vs_cpu(torch, ssd, serve)
     phase_ssm_serve(torch, kernels, serve)
+    lm_served = {arch: phase_lm_serve(torch, kernels, fa, serve, arch)
+                 for arch in LM_SERVED}
+    lm_cuts = phase_lm_cuts(torch, kernels, serve)
+    jamba = phase_jamba(torch, kernels, fa, serve)
+    lm_gpu_cpu = phase_lm_gpu_vs_cpu(torch, serve)
+    lm_runs = {**lm_served, **lm_cuts, f"{JAMBA} smoke": jamba,
+               "gpu_vs_cpu": lm_gpu_cpu}
+    log(f"[lm] runs: {json.dumps(lm_runs, default=str)}")
 
     fc1 = timing["segment"][EQ4_K.index(2_097_152)]
     fed = timing["fedavg"]
@@ -2928,11 +3284,26 @@ def main() -> int:
                    "ms": gemma["ms"], "plain_ms": gemma["plain_ms"],
                    "bound_ms": gemma["bound_ms"],
                    "library_ms": gemma["library_ms"],
-                   "max_abs_err": gemma["max_abs_err"]}},
+                   "max_abs_err": gemma["max_abs_err"]},
+         "hd128_g1": {"shape": dict(zip(("B", "S", "Hq", "Hkv", "hd",
+                                         "window", "softcap"), FLASH_QWEN)),
+                      "ms": qwen["ms"], "plain_ms": qwen["plain_ms"],
+                      "bound_ms": qwen["bound_ms"],
+                      "bound_by": qwen["bound_by"],
+                      "library_ms": qwen["library_ms"],
+                      "max_abs_err": qwen["max_abs_err"]},
+         "lm_launches": {
+             **{arch: {k: r[k] for k in ("launches", "windows", "hd")}
+                for arch, r in lm_served.items()},
+             **{arch: {k: r[k] for k in ("launches", "windows")}
+                for arch, r in lm_cuts.items()},
+             f"{JAMBA} smoke": jamba["flash_launches"]}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:21",
-         "launches": forward["launches"], "max_abs_err": scan["max_abs_err"],
+         "launches": forward["launches"],
+         "jamba_smoke_launches": jamba["ssd_launches"],
+         "max_abs_err": scan["max_abs_err"],
          "ms": scan["ms"], "plain_ms": scan["plain_ms"],
          "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],
          "library_ms": None, "call_ms": scan["call_ms"],

@@ -35,8 +35,10 @@ def lm_params_from_numpy(tree, device, dtype=None):
     which ``torch.from_numpy`` refuses; every leaf goes through float32,
     which holds bf16 exactly, and is then cast to ``dtype`` (default: the
     leaf's own dtype when it is float32, else bfloat16). The default keeps a
-    bf16 mamba tree's fp32 leaves (``A_log``, ``D``, ``dt_bias``) in fp32;
-    a ``dtype`` casts every leaf.
+    bf16 tree's fp32 leaves in fp32: mamba's ``A_log``, ``D`` and
+    ``dt_bias``, and the MoE router; a ``dtype`` casts every leaf. Nested
+    stacks (jamba's ``blocks.mamba``, (n_blocks, 7, ...)) and the
+    ``prologue`` come over leaf for leaf with the reference's keys.
     """
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device, dtype)

@@ -14,18 +14,18 @@ from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig, smoke_redu
 _ARCH_MODULES = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 
 # the reference's other architectures, with what each still needs
 NOT_PORTED = {
-    "mixtral-8x22b": "ROADMAP A11 (MoE)",
-    "gemma2-9b": "ROADMAP A11 (gemma2 pair_lg layers)",
-    "deepseek-v2-236b": "ROADMAP A11 (MLA, MoE, dense prologue)",
-    "jamba-1.5-large-398b": "ROADMAP A11 (jamba hybrid, MoE)",
-    "qwen1.5-4b": "ROADMAP A11 (its config and QKV-bias parity)",
     "qwen2-vl-7b": "ROADMAP A11 (M-RoPE, vision stub)",
     "seamless-m4t-large-v2": "ROADMAP A11 (encoder-decoder)",
-    "command-r-plus-104b": "ROADMAP A11 (its config, tied embeddings)",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)

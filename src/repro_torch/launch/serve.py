@@ -10,14 +10,16 @@ is present. Weights are random, drawn on the run's device from seed
 architecture's smoke config.
 
 The prefill of an attention model goes through ``build_model(cfg,
-use_pallas=True)``, so every layer's attention runs the hand-written flash
-kernel on the card, and reads only the last position's logits
-(``last_only``): greedy decoding needs no more. Its ``(k, v)`` per layer go
-into the ``{"k", "v"}`` cache slots ``[0, P)``, then each decode step writes
-slot ``t``. An SSM (``family == "ssm"``, mamba2) prefills by stepping
-``decode_step`` over the prompt, as the reference's serve does (its state
-is O(1)), so it launches no kernel; its full-sequence forward, which runs
-the SSD-scan kernel, is the scoring path (``model.forward``).
+use_pallas=True)``, so every GQA layer's attention runs the hand-written
+flash kernel on the card (MLA's takes the plain path, as in the
+reference), and reads only the last position's logits (``last_only``):
+greedy decoding needs no more. Its cache entries go into the cache's slots
+``[0, P)`` (:func:`place_prefill`), then each decode step writes slot
+``t``. An SSM (``family == "ssm"``, mamba2) or a hybrid (``attn_every``,
+jamba) prefills by stepping ``decode_step`` over the prompt, as the
+reference's serve does (its state is O(1)), so it launches no kernel; its
+full-sequence forward, which runs the SSD-scan and flash kernels, is the
+scoring path (``model.forward``).
 """
 from __future__ import annotations
 
@@ -59,13 +61,34 @@ def random_prompts(cfg, batch: int, prompt_len: int, seed: int, device):
                          generator=gen, device=device)
 
 
+def steps_prefill(cfg) -> bool:
+    """Whether the prefill steps ``decode_step`` (an SSM or a hybrid)."""
+    return cfg.family == "ssm" or bool(cfg.attn_every)
+
+
+def _place(slots: dict, entry, seq_axis: int) -> None:
+    """Copy one prefill cache entry into the cache's slots ``[0, P)`` along
+    ``seq_axis``, in place: a ``(k, v)`` or MLA ``(c_kv, k_rope)`` tuple
+    into ``{"k", "v"}`` or ``{"ckv", "krope"}``, a dict (gemma2's
+    ``{"local", "global"}``) key by key."""
+    if isinstance(entry, dict):
+        for name, sub in entry.items():
+            _place(slots[name], sub, seq_axis)
+        return
+    names = ("ckv", "krope") if "ckv" in slots else ("k", "v")
+    for name, t in zip(names, entry, strict=True):
+        slots[name].narrow(seq_axis, 0, t.shape[seq_axis]).copy_(t)
+
+
 def place_prefill(cache, prefill_cache) -> None:
-    """Copy the prefill's stacked ``(k, v)``, each (n_blocks, B, P, Hkv,
-    hd), into the ``{"k", "v"}`` cache slots ``[0, P)``, in place."""
-    k, v = prefill_cache["blocks"]
-    P = k.shape[2]
-    cache["blocks"]["k"][:, :, :P].copy_(k)
-    cache["blocks"]["v"][:, :, :P].copy_(v)
+    """Copy the prefill's cache (``forward(return_cache=True)``) into the
+    decode cache's slots ``[0, P)``, in place: the stacked block entries
+    (sequence axis 2) and deepseek's unstacked ``prologue`` (axis 1). The
+    reference's serve crashes here on every attention model (ROADMAP C2);
+    the port places them."""
+    _place(cache["blocks"], prefill_cache["blocks"], 2)
+    if "prologue" in prefill_cache:
+        _place(cache["prologue"], prefill_cache["prologue"], 1)
 
 
 def _sync(device) -> None:
@@ -75,8 +98,9 @@ def _sync(device) -> None:
 
 def generate(model, params, prompts, gen: int) -> dict:
     """Prefill ``prompts`` (B, P), then greedy-decode to ``gen`` new tokens
-    per sequence (the first from the prefill's logits). An SSM's prefill
-    steps ``decode_step`` over the prompt, as the reference's serve does.
+    per sequence (the first from the prefill's logits). An SSM's or a
+    hybrid's prefill steps ``decode_step`` over the prompt, as the
+    reference's serve does.
 
     Returns ``tokens`` (B, gen), ``logits`` (B, gen, vocab_padded) fp32 (the
     logits each token was picked from), ``prefill_ms``, ``decode_s`` (the
@@ -87,7 +111,7 @@ def generate(model, params, prompts, gen: int) -> dict:
     B, P = prompts.shape
     _sync(dev)
     launches0, t0 = FLASH.launches, time.perf_counter()
-    if cfg.family == "ssm":
+    if steps_prefill(cfg):
         cache = model.init_cache(B, P + gen, device=dev)
         for t in range(P):
             logits, cache = model.decode_step(

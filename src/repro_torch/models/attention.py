@@ -1,12 +1,19 @@
 """Attention blocks (port of ``repro/models/attention.py``): GQA with
-sliding window, soft-cap and QKV bias. DeepSeek-V2 MLA, Qwen2-VL M-RoPE and
-gemma2's local/global layers wait for ROADMAP A11 (``transformer`` refuses
-their configs)."""
+sliding window, soft-cap, QKV bias and gemma2's local/global layers, and
+DeepSeek-V2 MLA (multi-head latent attention with a compressed KV cache).
+Qwen2-VL's M-RoPE waits for ROADMAP A11 (``transformer`` refuses its
+configs)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models import layers as L
+
+# past this many cache slots a gemma2 global layer's decode attends to the
+# sliding window only (the reference's long-context variant)
+GLOBAL_DECODE_LIMIT = 32768
 
 # ---------------------------------------------------------------------------
 # standard GQA attention
@@ -34,8 +41,16 @@ def _rope(cfg, x, positions):
     return L.apply_rope(x, positions, cfg.rope_theta)
 
 
-def _window(cfg) -> int:
-    return cfg.sliding_window if cfg.attn_pattern == "swa" else 0
+def _window(cfg, is_global: bool, cache_len: int = 0) -> int:
+    """The sliding window a layer attends through (0: none). Local layers
+    of ``local_global`` take it, and so do its global layers' decode steps
+    once the cache is longer than :data:`GLOBAL_DECODE_LIMIT`."""
+    if cfg.attn_pattern == "swa":
+        return cfg.sliding_window
+    if cfg.attn_pattern == "local_global":
+        if not is_global or cache_len > GLOBAL_DECODE_LIMIT:
+            return cfg.sliding_window
+    return 0
 
 
 def _qkv(cfg, p, x):
@@ -45,15 +60,16 @@ def _qkv(cfg, p, x):
     return q, k, v
 
 
-def gqa_forward(cfg, p, x, positions, *, use_pallas=False):
+def gqa_forward(cfg, p, x, positions, *, is_global=True, use_pallas=False):
     """Full-sequence (train/prefill) forward. Returns (out, (k, v)) so callers
-    can stash the KV cache."""
+    can stash the KV cache. ``is_global`` toggles gemma2's local/global
+    layers."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     q = _rope(cfg, q.reshape(B, S, cfg.n_heads, cfg.head_dim), positions)
     k = _rope(cfg, k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim), positions)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    o = L.attend(q, k, v, causal=True, window=_window(cfg),
+    o = L.attend(q, k, v, causal=True, window=_window(cfg, is_global),
                  logit_softcap=cfg.attn_logit_softcap, use_pallas=use_pallas)
     return o.reshape(B, S, cfg.q_dim) @ p["wo"], (k, v)
 
@@ -68,7 +84,15 @@ def _dynamic_start(start: int, size: int, dim: int) -> int:
     return min(max(start, 0), dim - size)
 
 
-def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, positions):
+def _write(cache, new, pos: int) -> None:
+    """Write ``new`` (B, 1, ...) into ``cache`` (B, S, ...) at ``pos`` in
+    place, at ``dynamic_update_slice_in_dim``'s start."""
+    at = _dynamic_start(int(pos), 1, cache.shape[1])
+    cache[:, at:at + 1] = new.to(cache.dtype)
+
+
+def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, positions, *,
+               is_global=True):
     """One-token decode. x: (B,1,d); caches (B,S,Hkv,hd); pos: index of the
     new token. Returns (out, cache_k, cache_v).
 
@@ -83,10 +107,9 @@ def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, positions):
     q = _rope(cfg, q.reshape(B, 1, cfg.n_heads, cfg.head_dim), positions)
     k = _rope(cfg, k.reshape(B, 1, cfg.n_kv_heads, cfg.head_dim), positions)
     v = v.reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
-    at = _dynamic_start(int(pos), 1, S)
-    cache_k[:, at:at + 1] = k.to(cache_k.dtype)
-    cache_v[:, at:at + 1] = v.to(cache_v.dtype)
-    window = _window(cfg)
+    _write(cache_k, k, pos)
+    _write(cache_v, v, pos)
+    window = _window(cfg, is_global, S)
     if window > 0 and S > window:
         # static window slice ending at pos. While pos < window - 1 the
         # start is negative and, as in the reference, wraps to the cache's
@@ -99,3 +122,100 @@ def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, positions):
         o = L.attention_decode(q, cache_k, cache_v, kv_len=int(pos) + 1,
                                logit_softcap=cfg.attn_logit_softcap)
     return o.reshape(B, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 MLA
+# ---------------------------------------------------------------------------
+
+
+def mla_init(cfg, gen, dtype):
+    H = cfg.n_heads
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    dev = gen.device
+    return {
+        "q_down": L.dense_init(gen, cfg.d_model, cfg.q_lora_rank, dtype),
+        "q_norm_scale": torch.ones((cfg.q_lora_rank,), dtype=dtype, device=dev),
+        "q_up": L.dense_init(gen, cfg.q_lora_rank, H * qk, dtype),
+        "kv_down": L.dense_init(gen, cfg.d_model,
+                                cfg.kv_lora_rank + cfg.qk_rope_head_dim, dtype),
+        "kv_norm_scale": torch.ones((cfg.kv_lora_rank,), dtype=dtype,
+                                    device=dev),
+        "kv_up": L.dense_init(gen, cfg.kv_lora_rank,
+                              H * (cfg.qk_nope_head_dim + cfg.v_head_dim), dtype),
+        "wo": L.dense_init(gen, H * cfg.v_head_dim, cfg.d_model, dtype),
+    }
+
+
+def _mla_qkv(cfg, p, x, positions):
+    """Shared q/kv projection math. Returns q_nope, q_rope, c_kv, k_rope."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qk_n, qk_r, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    q = L.rmsnorm(x @ p["q_down"], p["q_norm_scale"], cfg.norm_eps)
+    q = (q @ p["q_up"]).reshape(B, S, H, qk_n + qk_r)
+    q_nope, q_rope = q[..., :qk_n], q[..., qk_n:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv = x @ p["kv_down"]  # (B, S, r + qk_r)
+    c_kv = L.rmsnorm(ckv[..., :r], p["kv_norm_scale"], cfg.norm_eps)
+    k_rope = L.apply_rope(ckv[..., r:].reshape(B, S, 1, qk_r), positions,
+                          cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_eff_qkv(cfg, p, q_nope, q_rope, c_kv, k_rope_flat):
+    """The GQA problem MLA reduces to once kv_up's nope projection is
+    absorbed into the query: Hkv = 1, effective query (B, Sq, H, r + qk_r)
+    = (q_nope · w_kc) ⊕ q_rope, key (B, Skv, 1, r + qk_r) = c_kv ⊕ k_rope,
+    value (B, Skv, 1, r) = c_kv. The absorption is an fp32 product cast back
+    to the model's dtype, as in the reference. Returns (q, k, v, scale)."""
+    H, qk_n, r = q_nope.shape[2], cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    w_kc = p["kv_up"][:, :H * qk_n].reshape(r, H, qk_n)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(torch.float32),
+                         w_kc.to(torch.float32)).to(q_nope.dtype)
+    q_eff = torch.cat([q_lat, q_rope], dim=-1)
+    k_eff = torch.cat([c_kv, k_rope_flat], dim=-1)[:, :, None, :]
+    v_eff = c_kv[:, :, None, :]
+    scale = 1.0 / math.sqrt(qk_n + cfg.qk_rope_head_dim)
+    return q_eff, k_eff, v_eff, scale
+
+
+def _mla_out(cfg, p, o_lat):
+    """o_lat: (B, Sq, H, r) latent attention output -> (B, Sq, H * v_dim),
+    through kv_up's value half in fp32."""
+    B, Sq, H, r = o_lat.shape
+    w_vc = p["kv_up"][:, H * cfg.qk_nope_head_dim:].reshape(r, H,
+                                                             cfg.v_head_dim)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(torch.float32),
+                     w_vc.to(torch.float32))
+    return o.reshape(B, Sq, H * cfg.v_head_dim).to(o_lat.dtype)
+
+
+def mla_forward(cfg, p, x, positions, **_):
+    """Full-sequence MLA. Returns (out, (c_kv, k_rope)), the compressed
+    cache. Its attention takes the plain path, as the reference's, whose
+    ``mla_forward`` never passes ``use_pallas``: the effective problem (q
+    head dim r + qk_r, v head dim r) is outside the flash kernel's
+    ``vd == hd <= 256``."""
+    B, S, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
+    k_rope_flat = k_rope.reshape(B, S, -1)
+    q_eff, k_eff, v_eff, scale = _mla_eff_qkv(cfg, p, q_nope, q_rope, c_kv,
+                                              k_rope_flat)
+    o_lat = L.attend(q_eff, k_eff, v_eff, causal=True, scale=scale)
+    return _mla_out(cfg, p, o_lat) @ p["wo"], (c_kv, k_rope_flat)
+
+
+def mla_decode(cfg, p, x, cache_ckv, cache_krope, pos: int, positions, **_):
+    """One-token MLA decode. cache_ckv: (B, S, kv_lora); cache_krope: (B, S,
+    qk_rope), both written at ``pos`` in place. Returns (out, cache_ckv,
+    cache_krope)."""
+    B = x.shape[0]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
+    _write(cache_ckv, c_kv, pos)
+    _write(cache_krope, k_rope.reshape(B, 1, -1), pos)
+    q_eff, k_eff, v_eff, scale = _mla_eff_qkv(cfg, p, q_nope, q_rope,
+                                              cache_ckv, cache_krope)
+    o_lat = L.attention_decode(q_eff, k_eff, v_eff, kv_len=int(pos) + 1,
+                               scale=scale)
+    return _mla_out(cfg, p, o_lat) @ p["wo"], cache_ckv, cache_krope

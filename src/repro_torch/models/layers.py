@@ -8,8 +8,12 @@ is drawn on the card.
 
 The reference's sharding hooks (``constrain``, ``unshard`` from
 ``repro/sharding/act.py``) are no-ops off a device mesh; on one card the
-port drops them. ``apply_mrope`` waits for qwen2-vl, and gemma's
-offset norm and gelu MLP for gemma2 (ROADMAP A11).
+port drops them. ``apply_mrope`` waits for qwen2-vl (ROADMAP A11).
+
+Gemma's variants (the ``1 + scale`` RMSNorm with zero-initialised scales,
+and the gelu MLP) are chosen, as in the reference, by the config's name:
+:func:`is_gemma`. A field of ``ArchConfig`` would break its equality with
+the reference's config.
 """
 from __future__ import annotations
 
@@ -41,12 +45,21 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
 # ----------------------------------------------------------------------------
 
 
-def rmsnorm(x, scale, eps: float = 1e-6):
+def is_gemma(cfg) -> bool:
+    """The reference's rule for gemma's norms and MLP activation."""
+    return cfg.name.startswith("gemma")
+
+
+def rmsnorm(x, scale, eps: float = 1e-6, *, gemma_style: bool = False):
+    """RMSNorm in fp32; ``gemma_style`` multiplies by ``1 + scale``."""
     dt = x.dtype
     x = x.to(torch.float32)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
-    return (x * scale.to(torch.float32)).to(dt)
+    mult = scale.to(torch.float32)
+    if gemma_style:
+        mult = 1.0 + mult
+    return (x * mult).to(dt)
 
 
 def layernorm(x, scale, bias, eps: float = 1e-6):
@@ -60,11 +73,24 @@ def layernorm(x, scale, bias, eps: float = 1e-6):
     return out.to(dt)
 
 
+def apply_norm(cfg, x, params, prefix: str):
+    """The config's norm with ``params[prefix + "_scale"]`` (and ``_bias``
+    for layernorm)."""
+    if cfg.norm_type == "layernorm":
+        return layernorm(x, params[f"{prefix}_scale"],
+                         params.get(f"{prefix}_bias"), cfg.norm_eps)
+    return rmsnorm(x, params[f"{prefix}_scale"], cfg.norm_eps,
+                   gemma_style=is_gemma(cfg))
+
+
 def norm_params(cfg, d: int, dtype, device=None):
+    """Layernorm: ones and zeros. RMSNorm: ones, or zeros for gemma, whose
+    norm multiplies by ``1 + scale``."""
     if cfg.norm_type == "layernorm":
         return {"scale": torch.ones((d,), dtype=dtype, device=device),
                 "bias": torch.zeros((d,), dtype=dtype, device=device)}
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    init = torch.zeros if is_gemma(cfg) else torch.ones
+    return {"scale": init((d,), dtype=dtype, device=device)}
 
 
 # ----------------------------------------------------------------------------
@@ -102,9 +128,13 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, dtype):
     }
 
 
-def mlp_apply(p, x):
-    """SwiGLU: (silu(x W_gate) * x W_up) W_down."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def mlp_apply(p, x, activation: str = "silu"):
+    """Gated MLP: (act(x W_gate) * x W_up) W_down, act silu (SwiGLU) or
+    gelu. The reference's gelu is ``jax.nn.gelu``, whose default is the
+    tanh approximation."""
+    g = x @ p["w_gate"]
+    g = F.gelu(g, approximate="tanh") if activation == "gelu" else F.silu(g)
+    return (g * (x @ p["w_up"])) @ p["w_down"]
 
 
 def softcap(x, cap: Optional[float]):
@@ -135,8 +165,9 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: int):
 def attention_reference(q, k, v, *, causal=True, window=0, logit_softcap=None,
                         q_offset=0, scale=None):
     """Naive (materialized-scores) GQA attention in fp32. q: (B,Sq,Hq,hd),
-    k/v: (B,Sk,Hkv,hd). Used for short sequences and as the oracle; it is
-    also the flash kernel's plain version."""
+    k: (B,Sk,Hkv,hd), v: (B,Sk,Hkv,vd) (MLA's vd differs from hd). Used
+    for short sequences and as the oracle; it is also the flash kernel's
+    plain version."""
     B, Sq, Hq, hd = q.shape
     _, Sk, Hkv, _ = k.shape
     vd = v.shape[-1]
@@ -159,7 +190,8 @@ def attention_chunked(q, k, v, *, causal=True, window=0, logit_softcap=None,
     """Flash-style attention in plain PyTorch: a loop over q blocks and,
     inside, over k blocks, with online max/sum rescaling in fp32. Memory is
     O(block_q * block_k) per step instead of O(Sq * Sk). Every k block is
-    visited, masked or not, as in the reference."""
+    visited, masked or not, as in the reference. v's head dim may differ
+    from q's and k's."""
     B, Sq, Hq, hd = q.shape
     _, Sk, Hkv, _ = k.shape
     vd = v.shape[-1]
@@ -207,7 +239,8 @@ def attention_chunked(q, k, v, *, causal=True, window=0, logit_softcap=None,
 
 def attention_decode(q, k_cache, v_cache, *, kv_len=None, window=0,
                      logit_softcap=None, scale=None):
-    """Single-token decode attention. q: (B,1,Hq,hd); caches (B,S,Hkv,hd).
+    """Single-token decode attention. q: (B,1,Hq,hd); k_cache (B,S,Hkv,hd),
+    v_cache (B,S,Hkv,vd).
 
     ``kv_len``: number of valid cache positions (the new token is at
     kv_len-1). The reference multiplies in the cache's storage dtype with

@@ -3,9 +3,11 @@ decoder-only assembly.
 
 Every ported architecture exposes:
     init(generator) -> params
-    forward(params, batch, **kw) -> (logits, aux[, cache])   (prefill)
+    forward(params, batch, **kw) -> (logits, aux[, cache])   (prefill; aux
+        is the MoE layers' summed load-balance loss, 0.0 without MoE)
     init_cache(batch, seq, dtype=None, device=None) -> cache
-    decode_step(params, cache, batch, pos) -> (logits, cache)
+    decode_step(params, cache, batch, pos) -> (logits, cache)   (the
+        cache, in the reference's structure, written in place)
     loss(params, batch)  raises: training waits for its slice
 
 Encoder-decoder configs (seamless) raise, naming ROADMAP A11.
@@ -34,8 +36,9 @@ def _loss_not_ported(*_args, **_kwargs):
 
 def build_model(cfg: ArchConfig, *, use_pallas: bool = False) -> Model:
     """``use_pallas=True`` (the reference's keyword) sends every full-sequence
-    attention through the hand-written flash kernel, and every mamba layer's
-    SSD scan through the hand-written SSD-scan kernel."""
+    GQA attention through the hand-written flash kernel, and every mamba
+    mixer's SSD scan through the hand-written SSD-scan kernel. MLA's
+    attention takes the plain path either way, as in the reference."""
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   f"not ported yet (ROADMAP A11)")

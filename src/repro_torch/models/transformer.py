@@ -1,20 +1,28 @@
-"""Decoder-only LM assembly (port of ``repro/models/transformer.py``), for
-the uniform block pattern: every layer an attention mixer and a dense MLP
-(h2o-danube and the other dense GQA decoders), or every layer a mamba mixer
-and no FFN (mamba2).
+"""Decoder-only LM assembly (port of ``repro/models/transformer.py``) for
+every decoder-only architecture of the reference but qwen2-vl's M-RoPE.
+
+Layers are grouped into the reference's smallest repeating *block pattern*:
+
+  uniform      — every layer identical (mixtral, qwen1.5, h2o-danube,
+                 command-r-plus, mamba2, deepseek-v2's layers 1..L-1)
+  pair_lg      — gemma2: (local, global) attention pairs
+  jamba8       — jamba: a period of ``attn_every`` layers, ``attn_every - 1``
+                 mamba mixers and one attention mixer, with dense and MoE
+                 FFNs alternating
+
+plus deepseek-v2's dense prologue (layer 0: MLA and a dense MLP).
 
 Parameters keep the reference's keys and layout: ``blocks`` holds each leaf
-stacked over a leading layer axis, and a Python loop over the layers takes
-the place of ``jax.lax.scan``. Caches are ``{"blocks": {"k", "v"}}``, or
-``{"blocks": {"conv", "ssm"}}`` for mamba, with the same leading axis;
-``decode_step`` writes into them in place.
+stacked over a leading block axis (jamba's mamba mixers and FFNs a second
+axis inside the block), and a Python loop over the blocks takes the place
+of ``jax.lax.scan``. Caches have the reference's structure with the same
+leading axis; ``decode_step`` writes into them in place.
 
-Not ported yet, and raising where reached: the gemma2 ``pair_lg`` and
-jamba ``jamba8`` patterns, deepseek's dense prologue, MLA and MoE (ROADMAP
-A11), and the training entries ``loss_fn`` / ``chunked_xent`` (the training
-slice). Batches carry token ids: the vision/audio stubs' ``embeds`` and
-M-RoPE's ``positions`` wait for ROADMAP A11. ``cfg.remat`` has no effect:
-the port has no training path yet.
+Not ported yet, and raising where reached: M-RoPE (qwen2-vl) and the
+encoder-decoder (ROADMAP A11), and the training entries ``loss_fn`` /
+``chunked_xent`` (the training slice). Batches carry token ids: the
+vision/audio stubs' ``embeds`` and M-RoPE's ``positions`` wait for ROADMAP
+A11. ``cfg.remat`` has no effect: the port has no training path yet.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models.moe import moe_apply, moe_init
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -59,28 +68,26 @@ def _layer_kinds(cfg):
     return mixer, ffn
 
 
-def _ported_blocks(cfg) -> int:
-    """The number of blocks, after checking that the port has every module
-    the config needs."""
-    pattern, n_blocks, prologue = block_layout(cfg)
-    mixer, ffn = _layer_kinds(cfg)
+def _prologue_kind(cfg) -> str:
+    return "mla" if cfg.use_mla else "attn"
+
+
+def _jamba_ffn_is_moe(cfg, i: int) -> bool:
+    return i % cfg.moe_every == cfg.moe_offset
+
+
+def _check_ported(cfg):
+    """Returns ``block_layout(cfg)``, after checking that the port has every
+    module the config needs."""
     missing = []
     if cfg.is_encoder_decoder:
         missing.append("encoder-decoder (ROADMAP A11)")
-    if pattern == "pair_lg":
-        missing.append("the gemma2 pair_lg pattern (ROADMAP A11)")
-    if pattern == "jamba8":
-        missing.append("the jamba8 hybrid pattern (ROADMAP A11)")
-    if prologue:
-        missing.append("the dense prologue layer (ROADMAP A11)")
-    if mixer == "mla":
-        missing.append("MLA (ROADMAP A11)")
-    if ffn == "moe":
-        missing.append("MoE (ROADMAP A11)")
+    if cfg.mrope:
+        missing.append("M-RoPE (ROADMAP A11)")
     if missing:
         raise NotImplementedError(f"{cfg.name} needs what the port does not "
                                   f"have yet: {', '.join(missing)}")
-    return n_blocks
+    return block_layout(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -98,35 +105,48 @@ def _norms(cfg, dtype, device):
     return p
 
 
+def _mixer_init(cfg, gen, dtype, kind: str):
+    init = {"mamba": M.mamba_init, "mla": A.mla_init}.get(kind, A.gqa_init)
+    return {**init(cfg, gen, dtype), **_norms(cfg, dtype, gen.device)}
+
+
+def _ffn_init(cfg, gen, dtype, kind: str):
+    if kind == "moe":
+        p = moe_init(cfg, gen, dtype)
+    else:
+        p = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return {**p, **_norms(cfg, dtype, gen.device)}
+
+
 def _pre_norm(cfg, p, x):
-    if cfg.norm_type == "layernorm":
-        return L.layernorm(x, p["norm_scale"], p.get("norm_bias"), cfg.norm_eps)
-    return L.rmsnorm(x, p["norm_scale"], cfg.norm_eps)
+    return L.apply_norm(cfg, x, p, "norm")
 
 
 def _post_norm(cfg, p, y):
     if cfg.post_attn_norm:
-        return L.rmsnorm(y, p["post_norm_scale"], cfg.norm_eps)
+        return L.rmsnorm(y, p["post_norm_scale"], cfg.norm_eps,
+                         gemma_style=L.is_gemma(cfg))
     return y
 
 
-def _mixer_init(cfg, gen, dtype, kind: str):
-    init = M.mamba_init if kind == "mamba" else A.gqa_init
-    return {**init(cfg, gen, dtype), **_norms(cfg, dtype, gen.device)}
-
-
-def _apply_mixer(cfg, p, x, positions, kind, *, use_pallas=False):
+def _apply_mixer(cfg, p, x, positions, kind, *, is_global=True,
+                 use_pallas=False):
     """Full-sequence mixer sub-layer. Returns (residual_out, cache entry):
-    ``(k, v)`` for attention, None for mamba (as in the reference)."""
+    ``(k, v)`` for attention, ``(c_kv, k_rope)`` for MLA, None for mamba
+    (as in the reference)."""
     h = _pre_norm(cfg, p, x)
     if kind == "mamba":
         y, cache = M.mamba_forward(cfg, p, h, use_pallas=use_pallas), None
+    elif kind == "mla":
+        y, cache = A.mla_forward(cfg, p, h, positions)
     else:
-        y, cache = A.gqa_forward(cfg, p, h, positions, use_pallas=use_pallas)
+        y, cache = A.gqa_forward(cfg, p, h, positions, is_global=is_global,
+                                 use_pallas=use_pallas)
     return x + _post_norm(cfg, p, y), cache
 
 
-def _apply_mixer_decode(cfg, p, x, cache, pos, positions, kind):
+def _apply_mixer_decode(cfg, p, x, cache, pos, positions, kind, *,
+                        is_global=True):
     """One-token mixer sub-layer. ``cache`` is this layer's slice of the
     stacked cache, written in place."""
     h = _pre_norm(cfg, p, x)
@@ -134,29 +154,141 @@ def _apply_mixer_decode(cfg, p, x, cache, pos, positions, kind):
         y, new = M.mamba_decode(cfg, p, h, cache)
         cache["conv"].copy_(new["conv"])
         cache["ssm"].copy_(new["ssm"])
+    elif kind == "mla":
+        y, _, _ = A.mla_decode(cfg, p, h, cache["ckv"], cache["krope"], pos,
+                               positions)
     else:
         y, _, _ = A.gqa_decode(cfg, p, h, cache["k"], cache["v"], pos,
-                               positions)
+                               positions, is_global=is_global)
     return x + _post_norm(cfg, p, y)
 
 
-def _apply_ffn(cfg, p, x):
-    y = L.mlp_apply(p, _pre_norm(cfg, p, x))
-    return x + _post_norm(cfg, p, y)
+def _apply_ffn(cfg, p, x, kind):
+    """FFN sub-layer. Returns (residual_out, aux_loss)."""
+    h = _pre_norm(cfg, p, x)
+    if kind == "moe":
+        y, aux = moe_apply(cfg, p, h)
+    else:
+        act = "gelu" if L.is_gemma(cfg) else "silu"
+        y, aux = L.mlp_apply(p, h, activation=act), 0.0
+    return x + _post_norm(cfg, p, y), aux
 
 
 def _stack(trees):
-    """Stack a list of equal-structured dicts of tensors leaf by leaf."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    """Stack a list of equal-structured nests (dicts, tuples, None) of
+    tensors leaf by leaf."""
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_stack(list(leaves)) for leaves in zip(*trees))
     return torch.stack(trees)
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (views, no copies)."""
+    """Entry ``i`` of a stacked tree (views, no copies)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def _block_init(cfg, gen, dtype, pattern):
+    if pattern == "uniform":
+        mixer, ffn = _layer_kinds(cfg)
+        p = {"mixer": _mixer_init(cfg, gen, dtype, mixer)}
+        if ffn:
+            p["ffn"] = _ffn_init(cfg, gen, dtype, ffn)
+        return p
+    if pattern == "pair_lg":
+        return {"local_mixer": _mixer_init(cfg, gen, dtype, "attn"),
+                "local_ffn": _ffn_init(cfg, gen, dtype, "mlp"),
+                "global_mixer": _mixer_init(cfg, gen, dtype, "attn"),
+                "global_ffn": _ffn_init(cfg, gen, dtype, "mlp")}
+    # jamba8
+    period = cfg.attn_every
+    mamba = [_mixer_init(cfg, gen, dtype, "mamba") for _ in range(period - 1)]
+    attn = _mixer_init(cfg, gen, dtype, "attn")
+    ffns = {"mlp": [], "moe": []}
+    for i in range(period):
+        kind = "moe" if _jamba_ffn_is_moe(cfg, i) else "mlp"
+        ffns[kind].append(_ffn_init(cfg, gen, dtype, kind))
+    return {"mamba": _stack(mamba), "attn": attn,
+            "ffn_mlp": _stack(ffns["mlp"]), "ffn_moe": _stack(ffns["moe"])}
+
+
+def _block_apply(cfg, bp, x, positions, pattern, *, use_pallas=False):
+    """One block, full-sequence. Returns (x, cache_entry, aux_loss)."""
+    if pattern == "uniform":
+        mixer, ffn = _layer_kinds(cfg)
+        x, cache = _apply_mixer(cfg, bp["mixer"], x, positions, mixer,
+                                use_pallas=use_pallas)
+        aux = 0.0
+        if ffn:
+            x, aux = _apply_ffn(cfg, bp["ffn"], x, ffn)
+        return x, cache, aux
+    if pattern == "pair_lg":
+        x, c_l = _apply_mixer(cfg, bp["local_mixer"], x, positions, "attn",
+                              is_global=False, use_pallas=use_pallas)
+        x, _ = _apply_ffn(cfg, bp["local_ffn"], x, "mlp")
+        x, c_g = _apply_mixer(cfg, bp["global_mixer"], x, positions, "attn",
+                              is_global=True, use_pallas=use_pallas)
+        x, _ = _apply_ffn(cfg, bp["global_ffn"], x, "mlp")
+        return x, {"local": c_l, "global": c_g}, 0.0
+    # jamba8: the attention layer's (k, v) is the block's cache entry
+    aux, cache, mix_i, n = 0.0, None, 0, {"mlp": 0, "moe": 0}
+    for i in range(cfg.attn_every):
+        if i == cfg.attn_offset:
+            x, cache = _apply_mixer(cfg, bp["attn"], x, positions, "attn",
+                                    use_pallas=use_pallas)
+        else:
+            x, _ = _apply_mixer(cfg, _layer(bp["mamba"], mix_i), x, positions,
+                                "mamba", use_pallas=use_pallas)
+            mix_i += 1
+        kind = "moe" if _jamba_ffn_is_moe(cfg, i) else "mlp"
+        x, a = _apply_ffn(cfg, _layer(bp[f"ffn_{kind}"], n[kind]), x, kind)
+        aux = aux + a
+        n[kind] += 1
+    return x, cache, aux
+
+
+def _block_decode(cfg, bp, x, bcache, pos, positions, pattern):
+    """One block, one-token decode; ``bcache`` is written in place."""
+    if pattern == "uniform":
+        mixer, ffn = _layer_kinds(cfg)
+        x = _apply_mixer_decode(cfg, bp["mixer"], x, bcache, pos, positions,
+                                mixer)
+        if ffn:
+            x, _ = _apply_ffn(cfg, bp["ffn"], x, ffn)
+        return x
+    if pattern == "pair_lg":
+        x = _apply_mixer_decode(cfg, bp["local_mixer"], x, bcache["local"],
+                                pos, positions, "attn", is_global=False)
+        x, _ = _apply_ffn(cfg, bp["local_ffn"], x, "mlp")
+        x = _apply_mixer_decode(cfg, bp["global_mixer"], x, bcache["global"],
+                                pos, positions, "attn", is_global=True)
+        x, _ = _apply_ffn(cfg, bp["global_ffn"], x, "mlp")
+        return x
+    mix_i, n = 0, {"mlp": 0, "moe": 0}
+    for i in range(cfg.attn_every):
+        if i == cfg.attn_offset:
+            x = _apply_mixer_decode(cfg, bp["attn"], x, bcache["attn"], pos,
+                                    positions, "attn")
+        else:
+            x = _apply_mixer_decode(cfg, _layer(bp["mamba"], mix_i), x,
+                                    _layer(bcache["mamba"], mix_i), pos,
+                                    positions, "mamba")
+            mix_i += 1
+        kind = "moe" if _jamba_ffn_is_moe(cfg, i) else "mlp"
+        x, _ = _apply_ffn(cfg, _layer(bp[f"ffn_{kind}"], n[kind]), x, kind)
+        n[kind] += 1
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -164,20 +296,53 @@ def _layer(tree, i: int):
 # ---------------------------------------------------------------------------
 
 
+def _mixer_cache_init(cfg, kind, batch, seq, dtype, device):
+    if kind == "mamba":
+        return M.mamba_state_init(cfg, batch, dtype, device)
+    if kind == "mla":
+        return {"ckv": torch.zeros((batch, seq, cfg.kv_lora_rank), dtype=dtype,
+                                   device=device),
+                "krope": torch.zeros((batch, seq, cfg.qk_rope_head_dim),
+                                     dtype=dtype, device=device)}
+    shape = (batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _zeros_like_stacked(tree, n: int):
+    """A nest of zero tensors with a leading axis of ``n`` before each
+    leaf's shape, each in its leaf's dtype."""
+    if isinstance(tree, dict):
+        return {k: _zeros_like_stacked(v, n) for k, v in tree.items()}
+    return torch.zeros((n, *tree.shape), dtype=tree.dtype, device=tree.device)
+
+
 def init_cache(cfg, batch: int, seq: int, dtype=None, device=None):
-    """Stacked-block KV / state cache (leading axis = n_blocks), zeros. A
-    mamba state's ``ssm`` leaf is fp32 whatever ``dtype`` is."""
-    n_blocks = _ported_blocks(cfg)
+    """Stacked-block KV / state cache (leading axis = n_blocks), zeros, in
+    the reference's structure: ``{"blocks": ...}`` with ``{"k", "v"}``,
+    MLA's ``{"ckv", "krope"}``, mamba's ``{"conv", "ssm"}``, gemma2's
+    ``{"local", "global"}`` or jamba's ``{"mamba" (each leaf (n_blocks,
+    attn_every - 1, ...)), "attn"}``, plus ``"prologue"`` for deepseek's
+    dense layer 0. A mamba state's ``ssm`` leaf is fp32 whatever ``dtype``
+    is."""
+    pattern, n_blocks, prologue = _check_ported(cfg)
     dtype = dtype or _dtype(cfg)
-    if _layer_kinds(cfg)[0] == "mamba":
-        one = M.mamba_state_init(cfg, batch, dtype, device)
-        return {"blocks": {k: torch.zeros((n_blocks, *v.shape), dtype=v.dtype,
-                                          device=device)
-                           for k, v in one.items()}}
-    shape = (n_blocks, batch, seq, cfg.n_kv_heads, cfg.head_dim)
-    return {"blocks": {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+    def mixer(kind):
+        return _mixer_cache_init(cfg, kind, batch, seq, dtype, device)
+
+    if pattern == "uniform":
+        one = mixer(_layer_kinds(cfg)[0])
+    elif pattern == "pair_lg":
+        one = {"local": mixer("attn"), "global": mixer("attn")}
+    else:
+        one = {"mamba": _zeros_like_stacked(mixer("mamba"),
+                                            cfg.attn_every - 1),
+               "attn": mixer("attn")}
+    out = {"blocks": _zeros_like_stacked(one, n_blocks)}
+    if prologue:
+        out["prologue"] = mixer(_prologue_kind(cfg))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -189,15 +354,8 @@ def init_params(cfg, gen: torch.Generator) -> Dict[str, Any]:
     """Random parameters in the reference's layout, drawn from ``gen`` on
     its device (a CUDA generator draws a full-width model on the card)."""
     dtype, dev = _dtype(cfg), gen.device
-    n_blocks = _ported_blocks(cfg)
-    mixer, ffn = _layer_kinds(cfg)
-    blocks = []
-    for _ in range(n_blocks):
-        block = {"mixer": _mixer_init(cfg, gen, dtype, mixer)}
-        if ffn:
-            block["ffn"] = {**L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
-                            **_norms(cfg, dtype, dev)}
-        blocks.append(block)
+    pattern, n_blocks, prologue = _check_ported(cfg)
+    blocks = [_block_init(cfg, gen, dtype, pattern) for _ in range(n_blocks)]
     params: Dict[str, Any] = {
         "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype),
         "blocks": _stack(blocks),
@@ -210,14 +368,15 @@ def init_params(cfg, gen: torch.Generator) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab_padded,
                                          dtype, scale=0.02)
+    if prologue:  # deepseek's dense layer 0
+        params["prologue"] = {
+            "mixer": _mixer_init(cfg, gen, dtype, _prologue_kind(cfg)),
+            "ffn": _ffn_init(cfg, gen, dtype, "mlp")}
     return params
 
 
 def _final_norm(cfg, params, x):
-    if cfg.norm_type == "layernorm":
-        return L.layernorm(x, params["final_norm_scale"],
-                           params.get("final_norm_bias"), cfg.norm_eps)
-    return L.rmsnorm(x, params["final_norm_scale"], cfg.norm_eps)
+    return L.apply_norm(cfg, x, params, "final_norm")
 
 
 def _logits(cfg, params, x):
@@ -233,67 +392,77 @@ def _embed(cfg, params, tokens):
 
 
 def _trunk(cfg, params, batch, *, use_pallas: bool, keep_cache: bool):
-    """Embedding, every block, final norm. Returns (x, [cache entry per
-    layer])."""
-    n_blocks = _ported_blocks(cfg)
-    mixer, ffn = _layer_kinds(cfg)
+    """Embedding, the prologue, every block, final norm. Returns (x, aux,
+    [cache entry per block], prologue cache entry)."""
+    pattern, n_blocks, prologue = _check_ported(cfg)
     x = _embed(cfg, params, batch["tokens"])
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    caches = []
+    pro_cache = None
+    if prologue:
+        pp = params["prologue"]
+        x, pro_cache = _apply_mixer(cfg, pp["mixer"], x, positions,
+                                    _prologue_kind(cfg), use_pallas=use_pallas)
+        x, _ = _apply_ffn(cfg, pp["ffn"], x, "mlp")
+    aux, caches = 0.0, []
     for i in range(n_blocks):
-        bp = _layer(params["blocks"], i)
-        x, kv = _apply_mixer(cfg, bp["mixer"], x, positions, mixer,
-                             use_pallas=use_pallas)
-        if ffn:
-            x = _apply_ffn(cfg, bp["ffn"], x)
+        x, cache, a = _block_apply(cfg, _layer(params["blocks"], i), x,
+                                   positions, pattern, use_pallas=use_pallas)
+        aux = aux + a
         if keep_cache:
-            caches.append(kv)
-    return _final_norm(cfg, params, x), caches
+            caches.append(cache)
+    return _final_norm(cfg, params, x), aux, caches, pro_cache
 
 
 def forward(cfg, params, batch, *, return_cache: bool = False,
             use_pallas: bool = False, last_only: bool = False):
     """Full-sequence forward. batch: {tokens (B, S)}.
-    Returns (logits, aux_loss[, cache]). ``last_only`` applies the LM head to
-    the final position only (serving-prefill semantics — avoids materializing
-    (B, S, V) logits). The cache is ``{"blocks": (k, v)}``, each (n_blocks,
-    B, S, Hkv, hd), as the reference's scan stacks the ``(k, v)`` tuples;
-    ``{"blocks": None}`` for mamba, whose forward keeps no state."""
-    x, caches = _trunk(cfg, params, batch, use_pallas=use_pallas,
-                       keep_cache=return_cache)
+    Returns (logits, aux_loss[, cache]): aux is the MoE layers' summed
+    load-balance loss (0.0 without MoE). ``last_only`` applies the LM head
+    to the final position only (serving-prefill semantics — avoids
+    materializing (B, S, V) logits). The cache is the reference's: each
+    block's entry stacked over the blocks, ``{"blocks": (k, v)}`` each
+    (n_blocks, B, S, Hkv, hd), MLA's ``(c_kv, k_rope)``, gemma2's
+    ``{"local": (k, v), "global": (k, v)}``, jamba's attention ``(k, v)``,
+    None for mamba2 (whose forward keeps no state); and deepseek's
+    ``"prologue"`` entry, unstacked."""
+    x, aux, caches, pro_cache = _trunk(cfg, params, batch,
+                                       use_pallas=use_pallas,
+                                       keep_cache=return_cache)
     if last_only:
         x = x[:, -1:]
     logits = _logits(cfg, params, x)
-    if return_cache:
-        if caches[0] is None:
-            return logits, 0.0, {"blocks": None}
-        ks, vs = zip(*caches)
-        return logits, 0.0, {"blocks": (torch.stack(ks), torch.stack(vs))}
-    return logits, 0.0
+    if not return_cache:
+        return logits, aux
+    cache = {"blocks": _stack(caches)}
+    del caches
+    if pro_cache is not None:
+        cache["prologue"] = pro_cache
+    return logits, aux, cache
 
 
 def decode_step(cfg, params, cache, batch, pos: int):
     """One-token decode. batch: {token (B, 1)}.
     ``pos``: index the new token is written at. Returns (logits (B,1,V),
     cache), the cache updated in place."""
-    n_blocks = _ported_blocks(cfg)
-    mixer, ffn = _layer_kinds(cfg)
+    pattern, n_blocks, prologue = _check_ported(cfg)
     x = _embed(cfg, params, batch["token"])
     positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,
                            device=x.device)
+    if prologue:
+        pp = params["prologue"]
+        x = _apply_mixer_decode(cfg, pp["mixer"], x, cache["prologue"], pos,
+                                positions, _prologue_kind(cfg))
+        x, _ = _apply_ffn(cfg, pp["ffn"], x, "mlp")
     for i in range(n_blocks):
-        bp = _layer(params["blocks"], i)
-        x = _apply_mixer_decode(cfg, bp["mixer"], x,
-                                _layer(cache["blocks"], i), pos, positions,
-                                mixer)
-        if ffn:
-            x = _apply_ffn(cfg, bp["ffn"], x)
+        x = _block_decode(cfg, _layer(params["blocks"], i), x,
+                          _layer(cache["blocks"], i), pos, positions, pattern)
     x = _final_norm(cfg, params, x)
     return _logits(cfg, params, x), cache
 
 
 def forward_hidden(cfg, params, batch, *, use_pallas: bool = False):
     """Trunk forward up to the final norm (no LM head). Returns (x, aux)."""
-    x, _ = _trunk(cfg, params, batch, use_pallas=use_pallas, keep_cache=False)
-    return x, 0.0
+    x, aux, _, _ = _trunk(cfg, params, batch, use_pallas=use_pallas,
+                          keep_cache=False)
+    return x, aux
