@@ -79,7 +79,20 @@ sources, in parallel, and drives the port's paths:
   smoke config runs its forward through the SSD and flash kernels, held
   against the plain forward; and a 2-layer fp32 cut of each family (jamba:
   its smoke config) on the GPU against the CPU, the MoE routers' choices
-  equal on both.
+  equal on both;
+* the last two LM families: the flash kernel timed at qwen2-vl-7b's
+  attention shape (7 query heads a KV head, hd 128) and at
+  seamless-m4t-large-v2's non-causal encoder and causal decoder shapes (hd
+  64), beside SDPA; qwen2-vl-7b served at full width through its vision
+  stub (merged embeddings, M-RoPE positions equal on all three axes, as
+  the reference's serve lays them out) and then with an image layout in
+  which the axes differ, one flash launch a layer, checked against the
+  plain attention path; seamless-m4t-large-v2 at full width: 4 x 1,152
+  frames encoded through the kernel (one non-causal launch an encoder
+  layer), 32 greedy steps from BOS (no launch), and one scoring forward
+  over 4 x 4,608 tokens (24 non-causal and 24 causal launches), checked
+  against the plain attention path; and a 2-layer fp32 cut of each (the
+  image layout for qwen2-vl) on the GPU against the CPU.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -135,6 +148,10 @@ FLASH_CASES = [
     (2, 64, 256, 4, 2, 32, False, 0, None),
     (1, 200, 200, 2, 2, 16, True, 64, None),
     (1, 64, 64, 8, 2, 128, True, 0, None),
+    # qwen2-vl's 7 query heads a KV head at hd 128, and seamless's
+    # non-causal encoder self-attention at hd 64
+    (1, 128, 128, 14, 2, 128, True, 0, None),
+    (2, 144, 144, 4, 4, 64, False, 0, None),
 ]
 FLASH_TOL_F32, FLASH_TOL_BF16 = 2e-5, 3e-2
 # head dims above 128 (gemma2's 256), in both variants, and bf16 views
@@ -145,11 +162,18 @@ FLASH_WIDE_CASES = [
     (2, 200, 200, 4, 4, 256, True, 64, None),
     (1, 64, 64, 2, 1, 160, False, 0, None),
 ]
-# gemma2-9b's prefill attention at one 4608-token prompt, and
-# qwen1.5-4b's at the served batch (one KV head a query head, G = 1): (B,
-# S, Hq, Hkv, hd, window, softcap)
-FLASH_GEMMA = (1, 4608, 16, 8, 256, 4096, 50.0)
-FLASH_QWEN = (4, 4608, 20, 20, 128, 0, None)
+# the LM families' attention shapes, self-attention over S positions:
+# (B, S, Hq, Hkv, hd, causal, window, softcap). gemma2-9b's prefill at one
+# 4608-token prompt; at the served batch, qwen1.5-4b's (one KV head a query
+# head, G = 1), qwen2-vl-7b's (G = 7), and seamless-m4t-large-v2's
+# non-causal encoder over 4608 // 4 = 1152 frames and causal decoder
+FLASH_SHAPE_KEYS = ("B", "S", "Hq", "Hkv", "hd", "causal", "window",
+                    "softcap")
+FLASH_GEMMA = (1, 4608, 16, 8, 256, True, 4096, 50.0)
+FLASH_QWEN = (4, 4608, 20, 20, 128, True, 0, None)
+FLASH_QWEN2VL = (4, 4608, 28, 4, 128, True, 0, None)
+FLASH_SEAMLESS_ENC = (4, 1152, 16, 16, 64, False, 0, None)
+FLASH_SEAMLESS_DEC = (4, 4608, 16, 16, 64, True, 0, None)
 # mamba2's path: the reference tests' SSD cases (B, S, H, P, N, chunk) and
 # tolerance, and the short SSM serving run (prompts, prompt length, new
 # tokens)
@@ -906,28 +930,31 @@ def phase_flash_main(torch, fa, m) -> dict:
 
 
 def phase_flash_shape(torch, fa, name, shape, seed) -> dict:
-    """One prefill attention shape of an LM family, ``shape`` = (B, S, Hq,
-    Hkv, hd, window, softcap), in bf16 through the tensor-core variant:
-    held against the plain version, then kernel, plain and library times.
-    SDPA takes no soft-cap: where there is one, its time over the same mask
-    is a yardstick only."""
-    B, S, Hq, Hkv, hd, window, cap = shape
+    """One self-attention shape of an LM family, ``shape`` = (B, S, Hq,
+    Hkv, hd, causal, window, softcap), in bf16 through the tensor-core
+    variant: held against the plain version, then kernel, plain and library
+    times. SDPA takes no soft-cap: where there is one, its time over the
+    same mask is a yardstick only."""
+    B, S, Hq, Hkv, hd, causal, window, cap = shape
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = _flash_inputs(torch, gen, B, S, S, Hq, Hkv, hd, torch.bfloat16,
                             q_std=4.0)
-    kw = dict(window=window, logit_softcap=cap)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
     err = _flash_close(torch, fa, "bf16_tc", (q, k, v), kw, FLASH_TOL_BF16)
     torch.cuda.empty_cache()
-    pairs = B * Hq * fa.band_pairs(S, S, causal=True, window=window)
+    pairs = B * Hq * fa.band_pairs(S, S, causal=causal, window=window)
     n_ops = 4 * hd * pairs
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     pos = torch.arange(S, device="cuda")
-    # a causal call without a window takes SDPA's is_causal path (its
-    # fastest); a window needs the mask
-    masking = dict(is_causal=True, attn_mask=None)
+    # without a window SDPA takes its own paths, is_causal for a causal
+    # call (its fastest) and no mask for a non-causal one; a window needs
+    # the mask
+    masking = dict(is_causal=causal, attn_mask=None)
     if window:
-        masking = dict(attn_mask=(pos[None, :] <= pos[:, None])
-                       & (pos[None, :] > pos[:, None] - window))
+        ok = pos[None, :] > pos[:, None] - window
+        if causal:
+            ok &= pos[None, :] <= pos[:, None]
+        masking = dict(attn_mask=ok)
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def library(qq, kk, vv):  # (B, H, S, hd) views; a yardstick only
@@ -935,17 +962,24 @@ def phase_flash_shape(torch, fa, name, shape, seed) -> dict:
                     vv.transpose(1, 2), enable_gqa=Hq != Hkv, **masking)
 
     row = _timed(torch, f"flash_attention {name} shape B={B} S={S} "
-                 f"Hq/Hkv={Hq}/{Hkv} hd={hd} window={window} softcap={cap} "
-                 f"bf16", lambda *a: fa.flash_attention(*a, **kw),
+                 f"Hq/Hkv={Hq}/{Hkv} hd={hd} causal={causal} window={window} "
+                 f"softcap={cap} bf16", lambda *a: fa.flash_attention(*a, **kw),
                  lambda *a: fa.flash_attention_plain(*a, **kw), library,
                  [(q, k, v)], n_bytes, n_ops, BF16_OPS_PER_S, batch=4, reps=3)
-    row.update(max_abs_err=err, tflops=n_ops / row["ms"] / 1e9)
+    row.update(max_abs_err=err, tflops=n_ops / row["ms"] / 1e9,
+               shape=dict(zip(FLASH_SHAPE_KEYS, shape)))
     log(f"[flash] {name} shape: max_abs_err={err:.3e}; kernel at "
         f"{row['tflops']:.2f} TFLOP/s, {100 * row['bound_ms'] / row['ms']:.1f}% "
         f"of its bf16 bound")
     del q, k, v, masking
     torch.cuda.empty_cache()
     return row
+
+
+def _shape_row(r) -> dict:
+    """The kernels line's entry of one ``phase_flash_shape`` run."""
+    return {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms", "max_abs_err")}
 
 
 def _reset(kernels) -> None:
@@ -975,15 +1009,16 @@ def _windows(cfg) -> dict:
 
 @contextlib.contextmanager
 def _flash_calls(calls: list):
-    """Record the (window, head dim, dtype) of every call the attention
-    layers make to ``kernels.ops.flash_attention``; the wrapper counts its
-    launches as always."""
+    """Record the (window, head dim, dtype, causal) of every call the
+    attention layers make to ``kernels.ops.flash_attention``; the wrapper
+    counts its launches as always."""
     ops = importlib.import_module("repro_torch.kernels.ops")
     inner = ops.flash_attention
 
     def recorded(q, k, v, **kw):
         calls.append((kw.get("window", 0), q.shape[-1],
-                      str(q.dtype).removeprefix("torch.")))
+                      str(q.dtype).removeprefix("torch."),
+                      kw.get("causal", True)))
         return inner(q, k, v, **kw)
 
     ops.flash_attention = recorded
@@ -1002,14 +1037,15 @@ def _check_calls(torch, label, cfg, launches, calls) -> dict:
     model's dtype at its head dim, with the config's windows; no other
     kernel launched. Returns the windows' counts."""
     n_attn = _attention_layers(cfg)
-    windows = dict(collections.Counter(w for w, _, _ in calls))
+    windows = dict(collections.Counter(w for w, *_ in calls))
     if launches.pop("flash_attention") != n_attn or len(calls) != n_attn:
         raise AssertionError(f"{label}: {len(calls)} flash calls, not one per "
                              f"GQA layer ({n_attn})")
     if any(launches.values()):
         raise AssertionError(f"{label}: other kernels launched: {launches}")
     if windows != _windows(cfg) or any(
-            h != cfg.head_dim or d != cfg.param_dtype for _, h, d in calls):
+            h != cfg.head_dim or d != cfg.param_dtype or not causal
+            for _, h, d, causal in calls):
         raise AssertionError(f"{label}: flash calls {calls}, expected "
                              f"windows {_windows(cfg)} at hd {cfg.head_dim}")
     return windows
@@ -1098,9 +1134,10 @@ def phase_serve_kernel_vs_plain(torch, serve, arch=None,
             model, params = serve.random_model(cfg, serve.SEED, "cuda")
             prompt = serve.random_prompts(cfg, serve.BATCH, serve.PROMPT_LEN,
                                           serve.SEED, "cuda")[:1]
-            got, _ = model.forward(params, {"tokens": prompt}, last_only=True)
+            batch = serve.prompt_batch(cfg, prompt)
+            got, _ = model.forward(params, batch, last_only=True)
             plain, _ = build_model(cfg, use_pallas=False).forward(
-                params, {"tokens": prompt}, last_only=True)
+                params, batch, last_only=True)
         got, plain = got[0, -1, :cfg.vocab_size], plain[0, -1, :cfg.vocab_size]
         err = float((got - plain).abs().max())
         scale = float(plain.abs().max())
@@ -1460,11 +1497,14 @@ def phase_ssm_serve(torch, kernels, serve) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the other decoder-only LM families (ROADMAP A11.1-A11.5)
+# the other LM families (ROADMAP A11.1-A11.7)
 # ---------------------------------------------------------------------------
 
+QWEN2VL = "qwen2-vl-7b"
+SEAMLESS = "seamless-m4t-large-v2"
 # served at full width through the serving CLI, at the main path's shape
-LM_SERVED = ("gemma2-9b", "qwen1.5-4b")
+# (qwen2-vl through its vision stub: merged embeddings, M-RoPE positions)
+LM_SERVED = ("gemma2-9b", "qwen1.5-4b", QWEN2VL)
 # full-width layer cuts (arch, layers kept), each about 20 GB of bf16
 # weights: mixtral 4 of 56, command-r-plus 4 of 64, deepseek-v2 its dense
 # prologue and 2 MoE layers
@@ -1474,9 +1514,37 @@ LM_CUT_GEN = 4
 # jamba at full width needs ~90 GB of bf16 weights a period (four 16-expert
 # MoE FFNs): it runs at its smoke config
 JAMBA = "jamba-1.5-large-398b"
-LM_ARCHS = LM_SERVED + tuple(a for a, _ in LM_CUTS) + (JAMBA,)
+LM_ARCHS = LM_SERVED + tuple(a for a, _ in LM_CUTS) + (JAMBA, SEAMLESS)
 # GPU against CPU: prompt length, generated tokens
 LM_CHECK = (64, 3)
+# qwen2-vl's image layout at the main path's prompt: text, an h x w block
+# of merged patches, text (n_text, h, w, n_after); and the GPU-against-CPU
+# check's at LM_CHECK's 64 positions; new tokens after the layout's prefill
+QWEN2VL_LAYOUT = (1024, 48, 64, 512)
+QWEN2VL_CHECK_LAYOUT = (16, 4, 6, 24)
+QWEN2VL_LAYOUT_GEN = 4
+# seamless's audio stub: decode steps from BOS over 4608 // 4 = 1152 frames
+# (the CLI's P + G - 1 = 4639 cut to keep the run short)
+SEAMLESS_STEPS = 32
+
+
+def mrope_layout(torch, batch, n_text, h, w, n_after, device):
+    """M-RoPE positions (batch, S, 3) of ``n_text`` text tokens, an ``h`` x
+    ``w`` image block of merged patches, then ``n_after`` text tokens
+    (arXiv:2409.12191 §2.1): text takes its index on all three axes; the
+    block takes one temporal index (the next free one) and its row and
+    column added to it on the height and width axes; text after it resumes
+    past the largest id so far."""
+    text = torch.arange(n_text, device=device)[:, None].expand(n_text, 3)
+    rows, cols = torch.meshgrid(torch.arange(h, device=device),
+                                torch.arange(w, device=device), indexing="ij")
+    img = torch.stack([torch.zeros_like(rows.reshape(-1)), rows.reshape(-1),
+                       cols.reshape(-1)], 1) + n_text
+    start = n_text + max(h, w)
+    after = (start + torch.arange(n_after, device=device))[:, None].expand(
+        n_after, 3)
+    pos = torch.cat([text, img, after])
+    return pos[None].expand(batch, *pos.shape).contiguous()
 
 
 def phase_lm_serve(torch, kernels, fa, serve, arch) -> dict:
@@ -1635,13 +1703,18 @@ def _router_calls(torch, calls: list):
 
 def phase_lm_gpu_vs_cpu(torch, serve) -> dict:
     """Each family of ``LM_ARCHS`` on the GPU against the CPU: a 2-layer
-    fp32 cut at full width (jamba: its smoke config, 2 layers fp32), one
-    state drawn on the card and copied to the CPU, ``LM_CHECK`` = (prompt,
-    new tokens) through ``serve.generate`` (and jamba's kernel forward).
-    First the MoE routers' chosen experts, call by call, must be equal on
-    both devices (a flip on a near-tie is reported with the router's top-k
-    margin at that token); then the same tokens and logits within 1e-4,
-    the CPU parity tests' tolerance for fp32 (tf32 off)."""
+    fp32 cut at full width (jamba: its smoke config, 2 layers fp32;
+    seamless: 2 encoder and 2 decoder layers), one state drawn on the card
+    and copied to the CPU, ``LM_CHECK`` = (prompt, new tokens) through
+    ``serve.generate`` (and the kernel forward of jamba and of seamless,
+    whose ``generate`` runs only the encoder through the kernel). qwen2-vl
+    serves an image layout (``QWEN2VL_CHECK_LAYOUT``), its decode steps'
+    embeddings drawn on the card; seamless decodes ``G`` steps from BOS
+    over ``P // 4`` frames. First the MoE routers' chosen experts, call by
+    call, must be equal on both devices (a flip on a near-tie is reported
+    with the router's top-k margin at that token); then the same tokens and
+    logits within 1e-4, the CPU parity tests' tolerance for fp32 (tf32
+    off)."""
     from repro_torch.configs import get_arch_config, get_smoke_config
 
     P, G = LM_CHECK
@@ -1653,18 +1726,35 @@ def phase_lm_gpu_vs_cpu(torch, serve) -> dict:
         else:
             cfg = dataclasses.replace(get_arch_config(arch), n_layers=2,
                                       param_dtype="float32")
-        res, fwd, routes = {}, {}, {}
+        if cfg.is_encoder_decoder:
+            cfg = dataclasses.replace(cfg, n_enc_layers=2)
+        res, fwd, routes, kw, score = {}, {}, {}, {}, None
         with torch.inference_mode():
             model, params = serve.random_model(cfg, 1, "cuda")
             prompt = serve.random_prompts(cfg, 1, P, 1, "cuda")
+            if arch == QWEN2VL:
+                draw = torch.Generator(device="cuda").manual_seed(2)
+                kw = {"positions": mrope_layout(torch, 1, *QWEN2VL_CHECK_LAYOUT,
+                                                "cuda"),
+                      "step_embeds": torch.randn((1, G - 1, cfg.d_model),
+                                                 generator=draw,
+                                                 device="cuda")}
+            if cfg.attn_every:  # the hybrid's kernel path
+                score = {"tokens": prompt}
+            elif cfg.is_encoder_decoder:
+                draw = torch.Generator(device="cuda").manual_seed(3)
+                score = {"frames": prompt, "tokens": torch.randint(
+                    0, cfg.vocab_size, (1, P), generator=draw,
+                    device="cuda")}
             for dev in ("cuda", "cpu"):
                 p = params if dev == "cuda" else _to(params, "cpu")
                 routes[dev] = []
                 with _router_calls(torch, routes[dev]):
-                    if cfg.attn_every:  # the hybrid's kernel path
-                        fwd[dev], _ = model.forward(
-                            p, {"tokens": prompt.to(dev)}, last_only=True)
-                    res[dev] = serve.generate(model, p, prompt.to(dev), G)
+                    if score is not None:
+                        fwd[dev], _ = model.forward(p, _to(score, dev),
+                                                    last_only=True)
+                    res[dev] = serve.generate(model, p, prompt.to(dev), G,
+                                              **_to(kw, dev))
                 del p
             del model, params
         torch.cuda.empty_cache()
@@ -1703,6 +1793,165 @@ def phase_lm_gpu_vs_cpu(torch, serve) -> dict:
                f"margin {margin:.3e}" if gpu else "")
             + f"; {row['seconds']:.1f} s")
         out[arch] = row
+    return out
+
+
+def phase_qwen2vl_layout(torch, kernels, serve) -> dict:
+    """qwen2-vl-7b at full width with an image layout in which the three
+    M-RoPE axes differ (``QWEN2VL_LAYOUT``: 1,024 text positions, a 48 x
+    64 block of merged patches, 512 text positions; the serve CLI's
+    positions are equal on all three axes, where M-RoPE is RoPE):
+    ``serve.generate`` prefills the ``serve.BATCH`` x ``serve.PROMPT_LEN``
+    embeddings with those positions and decodes ``QWEN2VL_LAYOUT_GEN``
+    tokens, every count set to 0 just before and read just after (one
+    bf16 flash launch a layer); then the first prompt's last-position
+    logits through the kernel and through the plain attention path (5% of
+    the largest logit), and how far the layout moves them from the
+    equal-axes positions."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_arch_config(QWEN2VL)
+    label = f"{QWEN2VL} image layout {QWEN2VL_LAYOUT}"
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        model, params = serve.random_model(cfg, serve.SEED, "cuda")
+        embeds = serve.random_prompts(cfg, serve.BATCH, serve.PROMPT_LEN,
+                                      serve.SEED, "cuda")
+        positions = mrope_layout(torch, serve.BATCH, *QWEN2VL_LAYOUT, "cuda")
+        if positions.shape[1] != serve.PROMPT_LEN:
+            raise AssertionError(f"{label}: {positions.shape[1]} positions")
+        torch.cuda.synchronize()
+        calls = []
+        _reset(kernels)
+        with _flash_calls(calls):
+            res = serve.generate(model, params, embeds, QWEN2VL_LAYOUT_GEN,
+                                 positions=positions)
+        launches = {k.source.stem: k.launches for k in kernels}
+        windows = _check_calls(torch, label, cfg, dict(launches), calls)
+        _check_generated(torch, label, res, cfg, serve.BATCH,
+                         QWEN2VL_LAYOUT_GEN)
+        one = {"embeds": embeds[:1], "positions": positions[:1]}
+        got, _ = model.forward(params, one, last_only=True)
+        plain, _ = build_model(cfg, use_pallas=False).forward(
+            params, one, last_only=True)
+        equal, _ = model.forward(params, serve.prompt_batch(cfg, embeds[:1]),
+                                 last_only=True)
+    V = cfg.vocab_size
+    _last_logits_close(torch, got[..., :V], plain[..., :V], 5e-2,
+                       f"{label} B=1, flash kernel vs plain path")
+    moved = float((got[..., :V] - equal[..., :V]).abs().max())
+    n = launches["flash_attention"]
+    out = {"launches": n, "windows": {str(w): c for w, c in windows.items()},
+           "prefill_ms": res["prefill_ms"],
+           "decode_tok_s": serve.BATCH * res["decode_steps"] / res["decode_s"],
+           "layout_vs_equal_max_abs_diff": moved}
+    del model, params, embeds, got, plain, equal
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[qwen2vl_layout] ok: {label}: {n} flash launches at hd "
+        f"{cfg.head_dim}; {serve.BATCH} x {QWEN2VL_LAYOUT_GEN} tokens, finite "
+        f"logits; prefill {res['prefill_ms']:.1f} ms, decode "
+        f"{out['decode_tok_s']:.1f} tok/s; last-position logits moved by "
+        f"{moved:.4e} from the equal-axes positions; {out['seconds']:.1f} s")
+    return out
+
+
+def phase_seamless(torch, kernels, serve) -> dict:
+    """seamless-m4t-large-v2 at full width (bf16, random weights from a
+    seed), every count set to 0 just before each run and read just after:
+
+    * the audio stub through ``serve.generate``: ``serve.BATCH`` x 1,152
+      frames (``serve.PROMPT_LEN // 4``) encoded through the flash kernel
+      (one non-causal launch an encoder layer), the cross cache filled,
+      then ``SEAMLESS_STEPS`` greedy steps from BOS (no launch);
+    * one scoring forward over those frames and ``serve.BATCH`` x
+      ``serve.PROMPT_LEN`` tokens (``last_only``: the full fp32 logits
+      would take 18.9 GB): 24 non-causal and 24 causal launches;
+    * the first row's last-position logits through the kernel and through
+      the plain attention path, at 5% of the largest logit."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_arch_config(SEAMLESS)
+    B, S, V = serve.BATCH, serve.PROMPT_LEN, cfg.vocab_size
+    torch.cuda.empty_cache()
+
+    def counted(fn):
+        calls = []
+        torch.cuda.synchronize()
+        _reset(kernels)
+        t0 = time.perf_counter()
+        with _flash_calls(calls):
+            got = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k.source.stem: k.launches for k in kernels}
+        n = launches.pop("flash_attention")
+        if any(launches.values()) or n != len(calls):
+            raise AssertionError(f"{SEAMLESS}: other kernels launched "
+                                 f"{launches}, or {n} flash launches for "
+                                 f"{len(calls)} calls")
+        if any(h != cfg.head_dim or d != cfg.param_dtype or w
+               for w, h, d, _ in calls):
+            raise AssertionError(f"{SEAMLESS}: flash calls {calls}")
+        return got, [c for *_, c in calls], ms
+
+    with torch.inference_mode():
+        model, params = serve.random_model(cfg, serve.SEED, "cuda")
+        n_params = sum(v.numel() for v in _leaves(params))
+        frames = serve.random_prompts(cfg, B, S, serve.SEED, "cuda")
+        draw = torch.Generator(device="cuda").manual_seed(serve.SEED + 3)
+        tokens = torch.randint(0, V, (B, S), generator=draw, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        res, causal, _ = counted(lambda: serve.generate(
+            model, params, frames, SEAMLESS_STEPS))
+        gen_peak = torch.cuda.max_memory_allocated() / 2**30
+        if (tuple(frames.shape) != (B, S // 4, cfg.d_model)
+                or res["flash_launches"] != len(causal)
+                or causal != [False] * cfg.n_enc_layers):
+            raise AssertionError(f"{SEAMLESS}: frames {tuple(frames.shape)}; "
+                                 f"the encode's flash calls (causal) "
+                                 f"{causal}, {res['flash_launches']} counted "
+                                 f"in it")
+        _check_generated(torch, SEAMLESS, res, cfg, B, SEAMLESS_STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        (logits, aux), causal, score_ms = counted(lambda: model.forward(
+            params, {"frames": frames, "tokens": tokens}, last_only=True))
+        score_peak = torch.cuda.max_memory_allocated() / 2**30
+        if (causal != [False] * cfg.n_enc_layers + [True] * cfg.n_layers
+                or tuple(logits.shape) != (B, 1, cfg.vocab_padded)
+                or not bool(torch.isfinite(logits).all()) or aux != 0.0):
+            raise AssertionError(f"{SEAMLESS} scoring forward: flash calls "
+                                 f"(causal) {causal}; logits "
+                                 f"{tuple(logits.shape)}, aux {aux}")
+        one = {"frames": frames[:1], "tokens": tokens[:1]}
+        got, _ = model.forward(params, one, last_only=True)
+        plain, _ = build_model(cfg, use_pallas=False).forward(
+            params, one, last_only=True)
+    _last_logits_close(torch, got[..., :V], plain[..., :V], 5e-2,
+                       f"{SEAMLESS} B=1, flash kernel vs plain path")
+    out = {"params": n_params, "encode_launches": res["flash_launches"],
+           "decode_launches": 0, "scoring_launches": len(causal),
+           "encode_ms": res["prefill_ms"], "decode_s": res["decode_s"],
+           "decode_tok_s": B * res["decode_steps"] / res["decode_s"],
+           "scoring_ms": score_ms, "generate_peak_gib": gen_peak,
+           "scoring_peak_gib": score_peak}
+    del model, params, frames, tokens, logits, got, plain
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[seamless] ok: {SEAMLESS}, {n_params} parameters "
+        f"({cfg.param_dtype}), "
+        f"{cfg.n_enc_layers} + {cfg.n_layers} layers: encode {B} x {S // 4} "
+        f"frames {res['prefill_ms']:.1f} ms with {res['flash_launches']} "
+        f"non-causal flash launches, {SEAMLESS_STEPS} decode steps "
+        f"({out['decode_tok_s']:.1f} tok/s) with none, peak "
+        f"{gen_peak:.2f} GiB; scoring forward over {B} x {S} tokens "
+        f"{score_ms:.1f} ms, {len(causal)} launches ({cfg.n_enc_layers} "
+        f"non-causal, {cfg.n_layers} causal), peak {score_peak:.2f} GiB; "
+        f"{out['seconds']:.1f} s")
     return out
 
 
@@ -3186,6 +3435,11 @@ def main() -> int:
     flash = phase_flash_main(torch, fa, main_call)
     gemma = phase_flash_shape(torch, fa, "gemma2-9b", FLASH_GEMMA, 8)
     qwen = phase_flash_shape(torch, fa, "qwen1.5-4b", FLASH_QWEN, 9)
+    qwen2vl = phase_flash_shape(torch, fa, QWEN2VL, FLASH_QWEN2VL, 10)
+    seamless_enc = phase_flash_shape(torch, fa, f"{SEAMLESS} encoder",
+                                     FLASH_SEAMLESS_ENC, 11)
+    seamless_dec = phase_flash_shape(torch, fa, f"{SEAMLESS} decoder",
+                                     FLASH_SEAMLESS_DEC, 12)
     phase_ssd_check(torch, ssd)
     ssd_call = ssd_main(serve)
     scan = phase_ssd_main(torch, ssd, ssd_call)
@@ -3218,8 +3472,11 @@ def main() -> int:
                  for arch in LM_SERVED}
     lm_cuts = phase_lm_cuts(torch, kernels, serve)
     jamba = phase_jamba(torch, kernels, fa, serve)
+    qwen2vl_layout = phase_qwen2vl_layout(torch, kernels, serve)
+    seamless = phase_seamless(torch, kernels, serve)
     lm_gpu_cpu = phase_lm_gpu_vs_cpu(torch, serve)
     lm_runs = {**lm_served, **lm_cuts, f"{JAMBA} smoke": jamba,
+               f"{QWEN2VL} image layout": qwen2vl_layout, SEAMLESS: seamless,
                "gpu_vs_cpu": lm_gpu_cpu}
     log(f"[lm] runs: {json.dumps(lm_runs, default=str)}")
 
@@ -3279,25 +3536,20 @@ def main() -> int:
          "library_ms": flash["library_ms"], "call_ms": flash["call_ms"],
          "bound_fp32_ms": flash["bound_fp32_ms"], "tflops": flash["tflops"],
          "shape": {**main_call, "dtype": "bfloat16", "causal": True},
-         "hd256": {"shape": dict(zip(("B", "S", "Hq", "Hkv", "hd", "window",
-                                      "softcap"), FLASH_GEMMA)),
-                   "ms": gemma["ms"], "plain_ms": gemma["plain_ms"],
-                   "bound_ms": gemma["bound_ms"],
-                   "library_ms": gemma["library_ms"],
-                   "max_abs_err": gemma["max_abs_err"]},
-         "hd128_g1": {"shape": dict(zip(("B", "S", "Hq", "Hkv", "hd",
-                                         "window", "softcap"), FLASH_QWEN)),
-                      "ms": qwen["ms"], "plain_ms": qwen["plain_ms"],
-                      "bound_ms": qwen["bound_ms"],
-                      "bound_by": qwen["bound_by"],
-                      "library_ms": qwen["library_ms"],
-                      "max_abs_err": qwen["max_abs_err"]},
+         "hd256": _shape_row(gemma), "hd128_g1": _shape_row(qwen),
+         "hd128_g7": _shape_row(qwen2vl),
+         "hd64_noncausal": _shape_row(seamless_enc),
+         "hd64_causal": _shape_row(seamless_dec),
          "lm_launches": {
              **{arch: {k: r[k] for k in ("launches", "windows", "hd")}
                 for arch, r in lm_served.items()},
              **{arch: {k: r[k] for k in ("launches", "windows")}
                 for arch, r in lm_cuts.items()},
-             f"{JAMBA} smoke": jamba["flash_launches"]}},
+             f"{JAMBA} smoke": jamba["flash_launches"],
+             f"{QWEN2VL} image layout": qwen2vl_layout["launches"],
+             SEAMLESS: {k: seamless[k] for k in (
+                 "encode_launches", "decode_launches",
+                 "scoring_launches")}}},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:21",

@@ -37,8 +37,10 @@ def lm_params_from_numpy(tree, device, dtype=None):
     leaf's own dtype when it is float32, else bfloat16). The default keeps a
     bf16 tree's fp32 leaves in fp32: mamba's ``A_log``, ``D`` and
     ``dt_bias``, and the MoE router; a ``dtype`` casts every leaf. Nested
-    stacks (jamba's ``blocks.mamba``, (n_blocks, 7, ...)) and the
-    ``prologue`` come over leaf for leaf with the reference's keys.
+    stacks (jamba's ``blocks.mamba``, (n_blocks, 7, ...)), the
+    ``prologue`` and the encoder-decoder's tree (``enc_blocks``,
+    ``dec_blocks`` with its ``xattn``) come over leaf for leaf with the
+    reference's keys.
     """
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device, dtype)

@@ -1,10 +1,6 @@
 """Architecture registry: ``--arch <id>`` resolution (port of
-``repro/configs/__init__.py``).
-
-It lists only the architectures whose modules the port has. Asking for one
-of the reference's other architectures raises ``NotImplementedError`` naming
-the ROADMAP item that will port it.
-"""
+``repro/configs/__init__.py``). It lists every architecture of the
+reference."""
 from __future__ import annotations
 
 import importlib
@@ -20,23 +16,16 @@ _ARCH_MODULES = {
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
-}
-
-# the reference's other architectures, with what each still needs
-NOT_PORTED = {
-    "qwen2-vl-7b": "ROADMAP A11 (M-RoPE, vision stub)",
-    "seamless-m4t-large-v2": "ROADMAP A11 (encoder-decoder)",
+    "qwen2-vl-7b": "repro_torch.configs.qwen2_vl_7b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
 }
 
 ARCH_NAMES = tuple(_ARCH_MODULES)
 
 
 def _module(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: {NOT_PORTED[name]}")
     if name not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {name!r}; ported: {sorted(_ARCH_MODULES)}")
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(_ARCH_MODULES[name])
 
 
@@ -53,7 +42,6 @@ __all__ = [
     "ShapeConfig",
     "SHAPES",
     "ARCH_NAMES",
-    "NOT_PORTED",
     "get_arch_config",
     "get_smoke_config",
     "smoke_reduce",

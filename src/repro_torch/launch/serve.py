@@ -20,6 +20,15 @@ jamba) prefills by stepping ``decode_step`` over the prompt, as the
 reference's serve does (its state is O(1)), so it launches no kernel; its
 full-sequence forward, which runs the SSD-scan and flash kernels, is the
 scoring path (``model.forward``).
+
+The stub frontends, as in the reference's serve. The vision stub
+(qwen2-vl) serves merged text and patch embeddings (B, P, d) drawn from the
+seed, with M-RoPE positions ``arange(P)`` on all three axes unless
+:func:`generate` is given others; each decode step draws a fresh embedding
+(the greedy token is recorded, not fed back). The audio stub (seamless, an
+encoder-decoder) draws frames (B, max(P // 4, 8), d), encodes them through
+the flash kernel, fills the cross-attention cache and greedy-decodes from
+BOS 0 with no decoder prefill: ``P + G - 1`` steps in the CLI.
 """
 from __future__ import annotations
 
@@ -31,7 +40,7 @@ import torch
 
 from repro_torch.configs import get_arch_config, get_smoke_config
 from repro_torch.kernels.flash_attention import KERNEL as FLASH
-from repro_torch.models import build_model
+from repro_torch.models import build_model, encdec
 from repro_torch.utils.device import default_device
 
 SEED = 0
@@ -55,10 +64,32 @@ def random_model(cfg, seed: int, device):
 
 
 def random_prompts(cfg, batch: int, prompt_len: int, seed: int, device):
-    """(batch, prompt_len) token ids in [0, vocab_size), drawn from ``seed``."""
+    """The served prompts, drawn from ``seed``: (batch, prompt_len) token ids
+    in [0, vocab_size); for the vision stub, merged embeddings (batch,
+    prompt_len, d_model); for the encoder-decoder's audio stub, frames
+    (batch, max(prompt_len // 4, 8), d_model). Embeddings are fp32 standard
+    normals, as the reference's."""
     gen = torch.Generator(device=device).manual_seed(seed + 1)
+    if cfg.is_encoder_decoder or cfg.modality == "vision_stub":
+        rows = max(prompt_len // 4, 8) if cfg.is_encoder_decoder else prompt_len
+        return torch.randn((batch, rows, cfg.d_model), generator=gen,
+                           device=device)
     return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                          generator=gen, device=device)
+
+
+def prompt_batch(cfg, prompts, positions=None) -> dict:
+    """The prefill forward's batch of ``prompts`` (:func:`random_prompts`):
+    ``{"tokens"}``, or for the vision stub ``{"embeds", "positions"}`` with
+    ``positions`` (B, P, 3), by default the reference serve's law,
+    ``arange(P)`` on all three axes (there M-RoPE is RoPE)."""
+    if cfg.modality != "vision_stub":
+        return {"tokens": prompts}
+    B, P = prompts.shape[:2]
+    if positions is None:
+        positions = torch.arange(P, device=prompts.device)[None, :, None]
+        positions = positions.expand(B, P, 3)
+    return {"embeds": prompts, "positions": positions}
 
 
 def steps_prefill(cfg) -> bool:
@@ -96,19 +127,32 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model, params, prompts, gen: int) -> dict:
-    """Prefill ``prompts`` (B, P), then greedy-decode to ``gen`` new tokens
-    per sequence (the first from the prefill's logits). An SSM's or a
-    hybrid's prefill steps ``decode_step`` over the prompt, as the
-    reference's serve does.
+def generate(model, params, prompts, gen: int, *, positions=None,
+             step_embeds=None) -> dict:
+    """Prefill ``prompts`` (:func:`random_prompts`), then greedy-decode to
+    ``gen`` new tokens per sequence (the first from the prefill's logits).
+    An SSM's or a hybrid's prefill steps ``decode_step`` over the prompt, as
+    the reference's serve does. An encoder-decoder takes frames and decodes
+    ``gen`` steps from BOS (:func:`generate_encdec`).
+
+    The vision stub: ``prompts`` are embeddings (B, P, d) and ``positions``
+    their M-RoPE positions (B, P, 3), default :func:`prompt_batch`'s. Decode
+    step ``i`` takes ``step_embeds[:, i:i + 1]`` (default: (B, gen - 1, d)
+    drawn on the prompts' device from a generator seeded ``SEED + 2``), at
+    the next text position after the prompt's largest on all three axes
+    (``t`` when the positions are ``arange(P)``, as in the reference).
 
     Returns ``tokens`` (B, gen), ``logits`` (B, gen, vocab_padded) fp32 (the
     logits each token was picked from), ``prefill_ms``, ``decode_s`` (the
-    gen - 1 decode steps), each on the host clock after a synchronize, and
-    ``flash_launches`` (flash kernel launches during the prefill).
+    ``decode_steps`` = gen - 1 decode steps), each on the host clock after a
+    synchronize, and ``flash_launches`` (flash kernel launches during the
+    prefill).
     """
     cfg, dev = model.cfg, prompts.device
-    B, P = prompts.shape
+    if cfg.is_encoder_decoder:
+        return generate_encdec(model, params, prompts, gen)
+    B, P = prompts.shape[:2]
+    vision = cfg.modality == "vision_stub"
     _sync(dev)
     launches0, t0 = FLASH.launches, time.perf_counter()
     if steps_prefill(cfg):
@@ -117,8 +161,9 @@ def generate(model, params, prompts, gen: int) -> dict:
             logits, cache = model.decode_step(
                 params, cache, {"token": prompts[:, t:t + 1]}, t)
     else:
-        logits, _, pcache = model.forward(params, {"tokens": prompts},
-                                          return_cache=True, last_only=True)
+        batch = prompt_batch(cfg, prompts, positions)
+        logits, _, pcache = model.forward(params, batch, return_cache=True,
+                                          last_only=True)
         cache = model.init_cache(B, P + gen, device=dev)
         place_prefill(cache, pcache)
         del pcache
@@ -127,21 +172,69 @@ def generate(model, params, prompts, gen: int) -> dict:
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     launches = FLASH.launches - launches0
+    if vision:  # the next text position: past the prompt's largest
+        shift = batch["positions"].amax(dim=(1, 2)) + 1 - P  # (B,)
+        if step_embeds is None:
+            draw = torch.Generator(device=dev).manual_seed(SEED + 2)
+            step_embeds = torch.randn((B, gen - 1, cfg.d_model),
+                                      generator=draw, device=dev)
     t0 = time.perf_counter()
-    for t in range(P, P + gen - 1):
-        logits, cache = model.decode_step(params, cache, {"token": out[-1]}, t)
+    for i, t in enumerate(range(P, P + gen - 1)):
+        if vision:
+            step = {"embed": step_embeds[:, i:i + 1],
+                    "positions": (shift + t)[:, None, None].expand(B, 1, 3)}
+        else:
+            step = {"token": out[-1]}
+        logits, cache = model.decode_step(params, cache, step, t)
         out.append(torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None])
         steps.append(logits[:, -1])
     _sync(dev)
     return {"tokens": torch.cat(out, dim=1), "logits": torch.stack(steps, 1),
             "prefill_ms": prefill_ms, "decode_s": time.perf_counter() - t0,
+            "decode_steps": gen - 1, "flash_launches": launches}
+
+
+def generate_encdec(model, params, frames, steps: int) -> dict:
+    """The audio stub's serving: encode ``frames`` (B, F, d) through the
+    model's attention route (the flash kernel for ``random_model``), fill
+    the cross cache, then greedy-decode ``steps`` tokens from BOS 0 with no
+    decoder prefill, in a self cache of ``steps + 1`` slots.
+
+    Returns ``tokens`` (B, steps) (BOS not included), ``logits`` (B, steps,
+    vocab_padded) fp32, ``prefill_ms`` (the encode and the cross cache),
+    ``decode_s`` (the ``decode_steps`` = steps decode steps) and
+    ``flash_launches`` (flash launches during the encode)."""
+    cfg, dev = model.cfg, frames.device
+    B = frames.shape[0]
+    _sync(dev)
+    launches0, t0 = FLASH.launches, time.perf_counter()
+    enc_out = model.encode(params, frames)
+    cache = model.init_cache(B, steps + 1, enc_out.shape[1], device=dev)
+    cache["cross"] = encdec.prefill_cross_cache(cfg, params, enc_out)
+    del enc_out
+    _sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = FLASH.launches - launches0
+    out = [torch.zeros((B, 1), dtype=torch.int64, device=dev)]  # BOS
+    logits_t = []
+    t0 = time.perf_counter()
+    for t in range(steps):
+        logits, cache = model.decode_step(params, cache, {"token": out[-1]}, t)
+        out.append(torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None])
+        logits_t.append(logits[:, -1])
+    _sync(dev)
+    return {"tokens": torch.cat(out[1:], dim=1),
+            "logits": torch.stack(logits_t, 1), "prefill_ms": prefill_ms,
+            "decode_s": time.perf_counter() - t0, "decode_steps": steps,
             "flash_launches": launches}
 
 
 def main(argv=None) -> dict:
-    """The CLI. Prints the prefill time, the flash kernel's launches, the
-    decode rate and the first generated tokens; returns what
-    :func:`generate` returns, with ``decode_tok_s`` and the config."""
+    """The CLI. Prints the prefill time (an encoder-decoder's encode time),
+    the flash kernel's launches, the decode rate and the first generated
+    tokens; returns what :func:`generate` returns, with ``decode_tok_s`` and
+    the config. An encoder-decoder decodes ``P + G - 1`` steps from BOS, as
+    the reference's serve does."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=4)
@@ -160,16 +253,20 @@ def main(argv=None) -> dict:
     with torch.inference_mode():
         model, params = random_model(cfg, SEED, dev)
         prompts = random_prompts(cfg, B, P, SEED, dev)
-        res = generate(model, params, prompts, G)
-    n_dec = B * (G - 1)
+        res = generate(model, params, prompts,
+                       P + G - 1 if cfg.is_encoder_decoder else G)
+    n_dec = B * res["decode_steps"]
     res["decode_tok_s"] = n_dec / res["decode_s"] if n_dec else 0.0
     res["cfg"] = cfg
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-    print(f"{cfg.name} on {where}: prefill {P} tokens x {B} seqs in "
+    what = (f"encode {prompts.shape[1]} frames" if cfg.is_encoder_decoder
+            else f"prefill {P} tokens")
+    print(f"{cfg.name} on {where}: {what} x {B} seqs in "
           f"{res['prefill_ms']:.1f} ms; flash kernel launches "
           f"{res['flash_launches']}")
-    print(f"decoded {G - 1} tokens/seq x {B} seqs in {res['decode_s']:.3f} s "
-          f"({res['decode_tok_s']:.1f} tok/s); {G} generated per seq")
+    print(f"decoded {res['decode_steps']} tokens/seq x {B} seqs in "
+          f"{res['decode_s']:.3f} s ({res['decode_tok_s']:.1f} tok/s); "
+          f"{res['tokens'].shape[1]} generated per seq")
     print(res["tokens"][:, :16].tolist())
     return res
 

@@ -1,5 +1,5 @@
 """Model architectures of the port: the paper's CNN (``cnn``) and the
-decoder-only LM assembly behind ``build_model``."""
+decoder-only and encoder-decoder LM assemblies behind ``build_model``."""
 from repro_torch.models.model import Model, build_model
 
 __all__ = ["Model", "build_model"]

@@ -1,8 +1,8 @@
 """Attention blocks (port of ``repro/models/attention.py``): GQA with
 sliding window, soft-cap, QKV bias and gemma2's local/global layers, and
 DeepSeek-V2 MLA (multi-head latent attention with a compressed KV cache).
-Qwen2-VL's M-RoPE waits for ROADMAP A11 (``transformer`` refuses its
-configs)."""
+A config with ``mrope`` (Qwen2-VL) rotates q and k by M-RoPE over (B, S, 3)
+positions in both the forward and the decode step."""
 from __future__ import annotations
 
 import math
@@ -35,9 +35,9 @@ def gqa_init(cfg, gen, dtype):
 
 
 def _rope(cfg, x, positions):
+    """RoPE on (B, S) positions, or Qwen2-VL's M-RoPE on (B, S, 3)."""
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: "
-                                  "ROADMAP A11")
+        return L.apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return L.apply_rope(x, positions, cfg.rope_theta)
 
 

@@ -8,7 +8,7 @@ is drawn on the card.
 
 The reference's sharding hooks (``constrain``, ``unshard`` from
 ``repro/sharding/act.py``) are no-ops off a device mesh; on one card the
-port drops them. ``apply_mrope`` waits for qwen2-vl (ROADMAP A11).
+port drops them.
 
 Gemma's variants (the ``1 + scale`` RMSNorm with zero-initialised scales,
 and the gelu MLP) are chosen, as in the reference, by the config's name:
@@ -109,6 +109,30 @@ def apply_rope(x, positions, theta: float):
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
     ang = positions[..., None].to(torch.float32) * freqs  # (B, S, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, hd); positions3: (B, S, 3)
+    integer temporal / height / width position ids.
+
+    Each of the ``sections`` (t_sec, h_sec, w_sec), which sum to hd // 2,
+    takes its angle from its own position axis [arXiv:2409.12191 §2.1]:
+    frequency i reads axis ``sec[i]``. With all three axes equal it is
+    :func:`apply_rope`."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.int64, device=x.device)
+                     for i, s in enumerate(sections)])  # (hd/2,) in {0, 1, 2}
+    pos = torch.gather(positions3.to(torch.float32), -1,
+                       sec.expand(*positions3.shape[:2], -1))  # (B, S, hd/2)
+    ang = pos * freqs
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,5 +1,5 @@
 """Decoder-only LM assembly (port of ``repro/models/transformer.py``) for
-every decoder-only architecture of the reference but qwen2-vl's M-RoPE.
+every decoder-only architecture of the reference.
 
 Layers are grouped into the reference's smallest repeating *block pattern*:
 
@@ -18,11 +18,13 @@ axis inside the block), and a Python loop over the blocks takes the place
 of ``jax.lax.scan``. Caches have the reference's structure with the same
 leading axis; ``decode_step`` writes into them in place.
 
-Not ported yet, and raising where reached: M-RoPE (qwen2-vl) and the
-encoder-decoder (ROADMAP A11), and the training entries ``loss_fn`` /
-``chunked_xent`` (the training slice). Batches carry token ids: the
-vision/audio stubs' ``embeds`` and M-RoPE's ``positions`` wait for ROADMAP
-A11. ``cfg.remat`` has no effect: the port has no training path yet.
+A batch carries token ids (``tokens``, a decode step's ``token``) or, for
+the vision stub (qwen2-vl), merged text and patch embeddings (``embeds``,
+a decode step's ``embed``) with M-RoPE's (B, S, 3) ``positions``
+(:func:`_embed_inputs`). The encoder-decoder (seamless) is
+``models/encdec.py``. Not ported yet: the training entries ``loss_fn`` /
+``chunked_xent`` (the training slice, ROADMAP A11.8; ``Model.loss``
+raises). ``cfg.remat`` has no effect: the port has no training path yet.
 """
 from __future__ import annotations
 
@@ -74,20 +76,6 @@ def _prologue_kind(cfg) -> str:
 
 def _jamba_ffn_is_moe(cfg, i: int) -> bool:
     return i % cfg.moe_every == cfg.moe_offset
-
-
-def _check_ported(cfg):
-    """Returns ``block_layout(cfg)``, after checking that the port has every
-    module the config needs."""
-    missing = []
-    if cfg.is_encoder_decoder:
-        missing.append("encoder-decoder (ROADMAP A11)")
-    if cfg.mrope:
-        missing.append("M-RoPE (ROADMAP A11)")
-    if missing:
-        raise NotImplementedError(f"{cfg.name} needs what the port does not "
-                                  f"have yet: {', '.join(missing)}")
-    return block_layout(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +313,7 @@ def init_cache(cfg, batch: int, seq: int, dtype=None, device=None):
     attn_every - 1, ...)), "attn"}``, plus ``"prologue"`` for deepseek's
     dense layer 0. A mamba state's ``ssm`` leaf is fp32 whatever ``dtype``
     is."""
-    pattern, n_blocks, prologue = _check_ported(cfg)
+    pattern, n_blocks, prologue = block_layout(cfg)
     dtype = dtype or _dtype(cfg)
 
     def mixer(kind):
@@ -354,7 +342,7 @@ def init_params(cfg, gen: torch.Generator) -> Dict[str, Any]:
     """Random parameters in the reference's layout, drawn from ``gen`` on
     its device (a CUDA generator draws a full-width model on the card)."""
     dtype, dev = _dtype(cfg), gen.device
-    pattern, n_blocks, prologue = _check_ported(cfg)
+    pattern, n_blocks, prologue = block_layout(cfg)
     blocks = [_block_init(cfg, gen, dtype, pattern) for _ in range(n_blocks)]
     params: Dict[str, Any] = {
         "embed": L.embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype),
@@ -384,20 +372,34 @@ def _logits(cfg, params, x):
     return L.softcap((x @ head).to(torch.float32), cfg.final_logit_softcap)
 
 
-def _embed(cfg, params, tokens):
-    x = params["embed"][tokens]
+def _embed(cfg, params, batch, ids: str, embeds: str):
+    """The batch's ``embeds`` entry (the vlm / audio stub frontends) cast to
+    the param dtype, else the embedding rows of its ``ids`` entry; scaled by
+    sqrt(d_model) where the config says so."""
+    if embeds in batch:
+        x = batch[embeds].to(_dtype(cfg))
+    else:
+        x = params["embed"][batch[ids]]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
+def _embed_inputs(cfg, params, batch):
+    """(x (B, S, d), positions): ``batch["positions"]`` where given ((B, S,
+    3) for M-RoPE), else ``arange(S)`` for every row."""
+    x = _embed(cfg, params, batch, "tokens", "embeds")
+    B, S = x.shape[:2]
+    if "positions" in batch:
+        return x, batch["positions"]
+    return x, torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+
 def _trunk(cfg, params, batch, *, use_pallas: bool, keep_cache: bool):
     """Embedding, the prologue, every block, final norm. Returns (x, aux,
     [cache entry per block], prologue cache entry)."""
-    pattern, n_blocks, prologue = _check_ported(cfg)
-    x = _embed(cfg, params, batch["tokens"])
-    B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    pattern, n_blocks, prologue = block_layout(cfg)
+    x, positions = _embed_inputs(cfg, params, batch)
     pro_cache = None
     if prologue:
         pp = params["prologue"]
@@ -416,7 +418,8 @@ def _trunk(cfg, params, batch, *, use_pallas: bool, keep_cache: bool):
 
 def forward(cfg, params, batch, *, return_cache: bool = False,
             use_pallas: bool = False, last_only: bool = False):
-    """Full-sequence forward. batch: {tokens (B, S)}.
+    """Full-sequence forward. batch: {tokens (B, S) | embeds (B, S, d)
+    [, positions (B, S) or, for M-RoPE, (B, S, 3)]}.
     Returns (logits, aux_loss[, cache]): aux is the MoE layers' summed
     load-balance loss (0.0 without MoE). ``last_only`` applies the LM head
     to the final position only (serving-prefill semantics — avoids
@@ -442,13 +445,16 @@ def forward(cfg, params, batch, *, return_cache: bool = False,
 
 
 def decode_step(cfg, params, cache, batch, pos: int):
-    """One-token decode. batch: {token (B, 1)}.
+    """One-token decode. batch: {token (B, 1) | embed (B, 1, d)
+    [, positions (B, 1) or, for M-RoPE, (B, 1, 3)]}.
     ``pos``: index the new token is written at. Returns (logits (B,1,V),
     cache), the cache updated in place."""
-    pattern, n_blocks, prologue = _check_ported(cfg)
-    x = _embed(cfg, params, batch["token"])
-    positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,
-                           device=x.device)
+    pattern, n_blocks, prologue = block_layout(cfg)
+    x = _embed(cfg, params, batch, "token", "embed")
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,
+                               device=x.device)
     if prologue:
         pp = params["prologue"]
         x = _apply_mixer_decode(cfg, pp["mixer"], x, cache["prologue"], pos,

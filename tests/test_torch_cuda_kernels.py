@@ -296,6 +296,10 @@ FLASH_CASES = [
     (2, 64, 256, 4, 2, 32, False, 0, None),
     (1, 200, 200, 2, 2, 16, True, 64, None),
     (1, 64, 64, 8, 2, 128, True, 0, None),
+    # qwen2-vl's 7 query heads a KV head at hd 128, and seamless's
+    # non-causal encoder self-attention at hd 64
+    (1, 128, 128, 14, 2, 128, True, 0, None),
+    (2, 144, 144, 4, 4, 64, False, 0, None),
 ]
 
 

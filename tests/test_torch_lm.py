@@ -64,18 +64,13 @@ def test_configs_match_reference():
 
 
 def test_registry_lists_only_ported_archs():
-    assert tconfigs.ARCH_NAMES == (
-        ARCH, "mamba2-2.7b", "qwen1.5-4b", "command-r-plus-104b", "gemma2-9b",
-        "mixtral-8x22b", "deepseek-v2-236b", "jamba-1.5-large-398b")
-    assert sorted(tconfigs.NOT_PORTED) == ["qwen2-vl-7b",
-                                           "seamless-m4t-large-v2"]
-    assert set(tconfigs.ARCH_NAMES) | set(tconfigs.NOT_PORTED) == \
-        set(jconfigs.ARCH_NAMES)
-    for name in tconfigs.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tconfigs.get_arch_config(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tconfigs.get_smoke_config(name)
+    """Every architecture of the reference is ported: the port's registry
+    holds the same names, and an unknown one is refused."""
+    assert set(tconfigs.ARCH_NAMES) == set(jconfigs.ARCH_NAMES)
+    assert len(tconfigs.ARCH_NAMES) == len(jconfigs.ARCH_NAMES) == 10
+    for name in jconfigs.ARCH_NAMES:
+        assert tconfigs.get_arch_config(name).name == name
+        assert tconfigs.get_smoke_config(name).name == f"{name}-smoke"
     with pytest.raises(KeyError):
         tconfigs.get_arch_config("no-such-arch")
 
@@ -370,20 +365,12 @@ def test_serve_cli_on_cpu(capsys):
 
 
 def test_unported_paths_raise():
-    """M-RoPE (qwen2-vl) and the encoder-decoder (seamless) wait for ROADMAP
-    A11, and training for its slice: each refuses where it is reached."""
+    """Training waits for its slice (ROADMAP A11.8): ``loss`` refuses for
+    the decoder-only and the encoder-decoder models alike."""
     cfg = tconfigs.get_smoke_config(ARCH)
-    mrope = dataclasses.replace(cfg, mrope=True)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        TT.init_params(mrope, torch.Generator())
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        TT.init_cache(mrope, 1, 8)
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        TA.gqa_forward(mrope, TA.gqa_init(mrope, torch.Generator(),
-                                          torch.float32),
-                       torch.zeros(1, 2, cfg.d_model),
-                       torch.zeros(1, 2, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        build_model(dataclasses.replace(cfg, is_encoder_decoder=True))
     with pytest.raises(NotImplementedError, match="training slice"):
         build_model(cfg).loss({}, {})
+    encdec = tconfigs.get_smoke_config("seamless-m4t-large-v2")
+    assert encdec.is_encoder_decoder
+    with pytest.raises(NotImplementedError, match="training slice"):
+        build_model(encdec, use_pallas=True).loss({}, {})
