@@ -92,7 +92,18 @@ sources, in parallel, and drives the port's paths:
   layer), 32 greedy steps from BOS (no launch), and one scoring forward
   over 4 x 4,608 tokens (24 non-causal and 24 causal launches), checked
   against the plain attention path; and a 2-layer fp32 cut of each (the
-  image layout for qwen2-vl) on the GPU against the CPU.
+  image layout for qwen2-vl) on the GPU against the CPU;
+* the LM trainer: ``repro_torch.launch.train`` trains h2o-danube-1.8b at
+  full width (24 layers, d 2560, bf16, remat on, adamw; 4 steps of 2 x
+  4,096 synthetic tokens) on the plain path, with no kernel launch, finite
+  losses that do not explode, and its warm step time, tokens/s and peak
+  memory; a 2-layer full-width cut's loss and bf16 gradients with remat on
+  and off; every registered architecture at its smoke config trained 3
+  steps on the card with its config's optimizer, its loss and gradients
+  against the CPU, a checkpoint reload stepped once against the step
+  without it, and 2 synced pods against the synced step; and the flash and
+  SSD kernels' refusal of inputs that require grad (they have no
+  backward).
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -3404,6 +3415,424 @@ def phase_sharded(torch, sr) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# the LM trainer: loss, optimizers, steps, checkpoints, the train CLI
+# ---------------------------------------------------------------------------
+
+# the main path: h2o-danube-1.8b at full width (24 layers, d 2560, bf16,
+# remat on, adamw), 4 steps of 2 x 4,096 tokens (train_4k's global batch
+# of 256 cut to 2), at lr 1e-5: the CLI's default 3e-4 is constant from the
+# first step (the reference builds its warmup schedule and never applies
+# it), and adamw's first sign-like steps of 3e-4 on a fresh 1.83 B model
+# raised the loss by 1.55 in 4 steps (PERF.md, section 6)
+TRAIN_FULL_ARGV = ["--arch", "h2o-danube-1.8b", "--full", "--steps", "4",
+                   "--batch", "2", "--seq", "4096", "--log-every", "1",
+                   "--lr", "1e-5"]
+TRAIN_REMAT = (2, 1, 1024)  # danube's layers kept at full width, batch, seq
+# every registered architecture at its smoke config: batch, sequence (a
+# multiple of the SSM chunk, 32), steps
+TRAIN_CHECK = (2, 64, 3)
+TRAIN_LR = 3e-4               # the train CLI's default
+TRAIN_LOSS_RTOL = 1e-5        # the CPU parity tests' (test_torch_loss.py)
+TRAIN_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+# parameters after an adamw step (tests/test_torch_steps.py): an element
+# whose gradient nearly cancels carries fp32 noise into its update
+TRAIN_PARAM_TOL = dict(rtol=1e-4, atol=0.05 * TRAIN_LR)
+POD_TOL = 5e-3                # the reference's, tests/test_distributed.py
+
+
+def _loss_grads(torch, model, params, batch):
+    """``model.loss`` and its gradient over every parameter leaf (zeros for
+    a leaf the loss does not reach)."""
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    loss = model.loss(tree_unflatten_like(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), grads
+
+
+def _worst_ratio(torch, got, want, rtol, atol) -> float:
+    """The largest ``|got - want| / (atol + rtol |want|)`` over leaf pairs
+    (<= 1 where ``assert_close`` passes), computed on the CPU in fp64."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.detach().cpu().double(), w.detach().cpu().double()
+        worst = max(worst, float(((g - w).abs() / (atol + rtol * w.abs()))
+                                 .max()))
+    return worst
+
+
+def phase_kernel_grad_refused(torch, fa, ssd) -> None:
+    """The flash and SSD kernels have no backward (nor have the reference's
+    Pallas kernels): on CUDA inputs that require grad their wrappers raise,
+    each input in turn, and launch nothing; so does a model built with
+    ``use_pallas=True`` asked for a loss under autograd. The model's loss
+    trains on the plain path."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((1, 256, 4, 64), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    kv = torch.randn((1, 256, 2, 64), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    x, dt, A, bm, cm = _ssd_inputs(torch, gen, 1, 256, 2, 16, 8,
+                                   torch.float32)
+    before = (fa.KERNEL.launches, ssd.KERNEL.launches)
+    refused = 0
+    for fn, inputs, kw in ((fa.flash_attention, (q, kv, kv), {}),
+                           (ssd.ssd_scan, (x, dt, A, bm, cm), {"chunk": 64})):
+        for i in range(len(inputs)):
+            args = [t.clone().requires_grad_(j == i)
+                    for j, t in enumerate(inputs)]
+            try:
+                fn(*args, **kw)
+            except RuntimeError as e:
+                if "no backward" not in str(e):
+                    raise
+                refused += 1
+            else:
+                raise AssertionError(f"{fn.__name__} took input {i} that "
+                                     f"requires grad")
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    model = build_model(cfg, use_pallas=True)
+    params = model.init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 64), generator=gen,
+                           device="cuda")
+    try:
+        _loss_grads(torch, model, params, {"tokens": tokens})
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+    else:
+        raise AssertionError("a use_pallas model's loss took gradients "
+                             "through the flash kernel")
+    if (fa.KERNEL.launches, ssd.KERNEL.launches) != before:
+        raise AssertionError("a refused call launched a kernel")
+    plain, _ = _loss_grads(torch, build_model(cfg), params,
+                           {"tokens": tokens})
+    with torch.no_grad():
+        kern = model.loss(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    log(f"[kernel_grad_refused] ok: flash (3 inputs) and SSD (5 inputs) "
+        f"refused {refused} calls with an input that requires grad, "
+        f"launching nothing; a use_pallas model's loss refused under "
+        f"autograd; its no-grad loss {float(kern):.6f} through the kernel, "
+        f"the plain path's {float(plain):.6f} with gradients")
+
+
+def phase_train_full(torch, kernels) -> dict:
+    """The train CLI at full width (``TRAIN_FULL_ARGV``), every count set
+    to 0 just before and read just after: no kernel launches (the model
+    trains on the plain path), finite losses, the last under the first +
+    0.5 (the reference's ``test_smoke_train_step`` rule); the warm step's
+    CUDA-event ms, tokens/s and the peak device memory."""
+    train = importlib.import_module("repro_torch.launch.train")
+    log(f"[train_full] python -m repro_torch.launch.train "
+        f"{' '.join(TRAIN_FULL_ARGV)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    res = train.main(TRAIN_FULL_ARGV)
+    wall = time.perf_counter() - t0
+    launches = {k.source.stem: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cfg, losses = res["cfg"], res["losses"]
+    del res["params"], res["opt_state"]
+    torch.cuda.empty_cache()
+    B, S = (int(TRAIN_FULL_ARGV[TRAIN_FULL_ARGV.index(f) + 1])
+            for f in ("--batch", "--seq"))
+    log(f"[train_full] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} at hd {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}, {cfg.param_dtype}, remat {cfg.remat}, "
+        f"{cfg.optimizer}; {res['n_params']:,} parameters; batch {B} x {S}")
+    log(f"[train_full] losses {losses}; step ms (CUDA events) "
+        f"{[round(x, 4) for x in res['step_ms']]}; warm tokens/s "
+        f"{res['tokens_per_s']:.1f}; peak device memory {peak:.2f} GiB; "
+        f"kernel launches during the steps {json.dumps(launches)}; "
+        f"{wall:.1f} s in all")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0] + 0.5:
+        raise AssertionError(f"the loss exploded: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"the training path launched a kernel: "
+                             f"{launches}")
+    warm = res["step_ms"][1:]
+    log(f"[train_full] ok: {len(losses)} steps, finite losses, last "
+        f"{losses[-1]:.4f} < first {losses[0]:.4f} + 0.5, no kernel launch; "
+        f"warm step {statistics.median(warm):.1f} ms (median of "
+        f"{len(warm)})")
+    return {"arch": cfg.name, "n_params": res["n_params"], "batch": B,
+            "seq": S, "losses": losses, "step_ms": res["step_ms"],
+            "warm_step_ms": statistics.median(warm),
+            "tokens_per_s": res["tokens_per_s"], "peak_gib": peak,
+            "launches": launches, "wall_s": wall}
+
+
+def _kind(name: str) -> str:
+    """A device kernel's kind, from its name."""
+    n = name.lower()
+    if any(s in n for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+        return "matrix products"
+    if "softmax" in n or "reduce" in n:
+        return "reductions and softmax"
+    if "elementwise" in n:
+        return "elementwise"
+    return "other"
+
+
+def phase_train_profile(torch) -> dict:
+    """The main path's training step (``TRAIN_FULL_ARGV``'s model, batch
+    and lr) after a warm step, split by CUDA events into its forward (the
+    loss), backward (``autograd.grad``: the blocks' and the attention's
+    recomputes and the gradients) and optimizer update; then one more step
+    under torch.profiler: device busy time, idle share, and device time by
+    kernel kind and by kernel."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+
+    arg = {f: TRAIN_FULL_ARGV[TRAIN_FULL_ARGV.index(f) + 1]
+           for f in ("--arch", "--batch", "--seq", "--lr")}
+    B, S = int(arg["--batch"]), int(arg["--seq"])
+    cfg = get_arch_config(arg["--arch"])
+    model = build_model(cfg)
+    params = model.init(
+        torch.Generator(device="cuda").manual_seed(train.SEED))
+    opt = make_optimizer(cfg.optimizer, lr=float(arg["--lr"]))
+    state = opt.init(params)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device="cuda")}
+    step = steps.make_train_step(model, opt)
+    params, state, _ = step(params, state, batch)  # warm
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    ev[0].record()
+    loss = model.loss(tree_unflatten_like(params, leaves), batch)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    ev[2].record()
+    params, state = opt.update(
+        tree_unflatten_like(params, [x.detach() for x in leaves]),
+        tree_unflatten_like(params, grads), state)
+    ev[3].record()
+    torch.cuda.synchronize()
+    del leaves, grads, loss
+    split = {k: ev[i].elapsed_time(ev[i + 1]) for i, k in
+             enumerate(("forward", "backward", "update"))}
+    log(f"[train_profile] {cfg.name} B={B} S={S}: a warm step split (CUDA "
+        f"events, ms): {json.dumps(split)}")
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.start()
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    prof.stop()
+    wall = (time.perf_counter() - t0) * 1e3
+    del params, state
+    torch.cuda.empty_cache()
+    out = {"split_ms": split, "wall_ms": wall}
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        log("[train_profile] device time: not measured (no device events)")
+        return out
+    union = importlib.import_module("repro_torch.launch.profile_round")._union_us
+    busy = union((e.time_range.start, e.time_range.end) for e in dev) / 1e3
+    kinds, by_name = collections.Counter(), {}
+    for e in dev:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        kinds[_kind(e.name)] += ms
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + ms, n + 1)
+    out.update(busy_ms=busy, idle=1 - busy / wall, events=len(dev),
+               kinds_ms=dict(kinds))
+    log(f"[train_profile] a step under the profiler: {wall:.1f} ms, device "
+        f"busy {busy:.1f} ms, idle share {100 * (1 - busy / wall):.1f}%, "
+        f"{len(dev)} device events; device ms by kind "
+        f"{json.dumps({k: round(v, 1) for k, v in kinds.most_common()})}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (ms, n) in top:
+        log(f"[train_profile]   {ms:10.2f} ms {n:7d}x  {name[:90]}")
+    return out
+
+
+def phase_train_remat(torch) -> dict:
+    """danube at full width cut to ``TRAIN_REMAT``'s layers (bf16), one
+    batch: the loss and the bf16 gradients with remat on and off. The loss
+    within rtol 1e-6, each gradient leaf within one bf16 rounding step
+    (2^-8) of its largest value (the card's atomic adds may sum in another
+    order); whether they are bit-equal and the largest relative difference
+    are printed, with each run's peak memory."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.models import build_model
+
+    n_layers, B, S = TRAIN_REMAT
+    cfg = dataclasses.replace(get_arch_config("h2o-danube-1.8b"),
+                              n_layers=n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = build_model(cfg).init(gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                     device="cuda")}
+    runs = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(dataclasses.replace(cfg, remat=remat))
+        loss, grads = _loss_grads(torch, model, params, batch)
+        torch.cuda.synchronize()
+        runs[remat] = (loss, grads, torch.cuda.max_memory_allocated() / 2**30)
+    (l1, g1, m1), (l0, g0, m0) = runs[True], runs[False]
+    rel = max(float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp(min=1e-30))
+              for a, b in zip(g1, g0))
+    equal = sum(bool(torch.equal(a, b)) for a, b in zip(g1, g0))
+    log(f"[train_remat] {cfg.name} cut to {n_layers} layers, "
+        f"{cfg.param_dtype}, batch {B} x {S}: loss remat on {float(l1)!r}, "
+        f"off {float(l0)!r}; "
+        f"gradients bit-equal in {equal} of {len(g0)} leaves, largest "
+        f"relative difference {rel:.3e}; peak memory {m1:.2f} GiB on, "
+        f"{m0:.2f} off")
+    if not abs(float(l1) - float(l0)) <= 1e-6 * abs(float(l0)):
+        raise AssertionError(f"remat changed the loss: {float(l1)} against "
+                             f"{float(l0)}")
+    if not rel <= 2.0 ** -8:
+        raise AssertionError(f"remat changed the gradients by {rel:.3e} of "
+                             f"their largest value")
+    log("[train_remat] ok: remat on equals remat off")
+    return {"loss": float(l1), "loss_equal": bool(torch.equal(l1, l0)),
+            "grad_max_rel_diff": rel,
+            "grad_leaves_equal": equal, "grad_leaves": len(g0),
+            "peak_gib_remat": m1, "peak_gib_no_remat": m0}
+
+
+def phase_train_gpu_vs_cpu(torch) -> dict:
+    """Every registered architecture at its smoke config (fp32), with its
+    config's optimizer (adafactor for mixtral, command-r-plus, deepseek-v2
+    and jamba, adamw for the rest) and the train CLI's data and stub
+    inputs (``train.train_batch``): ``TRAIN_CHECK``'s steps on the card
+    (finite losses, the last under the first + 0.5); then, from the card's
+    state and the next batch, the loss and gradients on the card against
+    the CPU (the CPU tests' tolerances); the state saved to a checkpoint
+    on the card, loaded, carried back by ``bridge`` (bit for bit) and
+    stepped once, equal to the step without the save (loss rtol 1e-6,
+    parameters ``TRAIN_PARAM_TOL``: the card's atomic adds may sum in
+    another order; bit-equality is reported); and 2 pods (half the batch
+    each, sgd at lr 0.1 without momentum, as the reference's test) synced
+    after one step, against the synced step on the whole batch (<
+    ``POD_TOL``)."""
+    import tempfile
+
+    from repro_torch import bridge
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import ARCH_NAMES, get_smoke_config
+    from repro_torch.data.tokens import batches, synthetic_tokens
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    B, S, n_steps = TRAIN_CHECK
+    out = {}
+    for arch in sorted(ARCH_NAMES):
+        t0 = time.perf_counter()
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg)
+        opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR)
+        step = steps.make_train_step(model, opt)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        it = batches(synthetic_tokens(cfg.vocab_size, 200_000, seed=0),
+                     2 * B, S, seed=1)
+        data = [train.train_batch(cfg, torch.from_numpy(next(it)["tokens"])
+                                  .to("cuda", torch.int64), gen)
+                for _ in range(n_steps + 1)]
+        data, whole = [tree_map(lambda x: x[:B], b) for b in data], data[-1]
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        state = opt.init(params)
+        losses = []
+        for b in data[:n_steps]:
+            params, state, loss = step(params, state, b)
+            losses.append(float(loss))
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0] + 0.5):
+            raise AssertionError(f"{arch}: losses {losses}")
+        # the card against the CPU, from the card's state
+        b = data[n_steps]
+        lg, gg = _loss_grads(torch, model, params, b)
+        lc, gc = _loss_grads(torch, model, _to(params, "cpu"), _to(b, "cpu"))
+        loss_gap = abs(float(lg) - float(lc)) / abs(float(lc))
+        grad_ratio = _worst_ratio(torch, gg, gc, **TRAIN_GRAD_TOL)
+        if not (loss_gap <= TRAIN_LOSS_RTOL and grad_ratio <= 1.0):
+            raise AssertionError(f"{arch}: GPU against CPU loss {float(lg)} / "
+                                 f"{float(lc)}, gradients at {grad_ratio:.3f} "
+                                 f"of the tolerance")
+        # a checkpoint written on the card, reloaded, stepped once
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(d, n_steps, {"params": params, "opt_state": state,
+                                         "step": n_steps})
+            tree, at = load_checkpoint(d)
+        p2 = bridge.lm_params_from_numpy(tree["params"], "cuda")
+        s2 = bridge.opt_state_from_numpy(tree["opt_state"], "cuda")
+        if at != n_steps or not all(
+                a.dtype == c.dtype and torch.equal(a, c) for a, c in
+                zip(tree_leaves([p2, s2]), tree_leaves([params, state]))):
+            raise AssertionError(f"{arch}: the checkpoint did not reload the "
+                                 f"state it saved")
+        pa, _, la = step(params, state, b)
+        pb, _, lb = step(p2, s2, b)
+        resume_ratio = _worst_ratio(torch, tree_leaves(pb), tree_leaves(pa),
+                                    **TRAIN_PARAM_TOL)
+        if not (abs(float(la) - float(lb)) <= 1e-6 * abs(float(la))
+                and resume_ratio <= 1.0):
+            raise AssertionError(f"{arch}: the step after the reload: loss "
+                                 f"{float(lb)} against {float(la)}, params at "
+                                 f"{resume_ratio:.3f} of the tolerance")
+        resume_equal = all(torch.equal(a, c) for a, c in
+                           zip(tree_leaves(pb), tree_leaves(pa)))
+        # 2 pods synced after one step against the synced whole-batch step
+        sgd = make_optimizer("sgd", lr=0.1, momentum=0.0)
+        p_ref, _, _ = steps.make_train_step(model, sgd)(
+            params, sgd.init(params), whole)
+        stack = lambda t: tree_map(  # noqa: E731
+            lambda x: torch.stack([x, x]) if torch.is_tensor(x) else x, t)
+        pods = {k: v.reshape((2, B) + v.shape[1:]) for k, v in whole.items()}
+        ps, _, _ = steps.make_pod_local_train_step(model, sgd, 2)(
+            stack(params), stack(sgd.init(params)), pods)
+        ps = steps.make_cross_pod_sync(2)(ps)
+        pod_diff = max(float((a - c[0]).abs().max()) for a, c in
+                       zip(tree_leaves(p_ref), tree_leaves(ps)))
+        if not pod_diff < POD_TOL:
+            raise AssertionError(f"{arch}: 2 synced pods {pod_diff:.3e} from "
+                                 f"the synced step")
+        row = {"optimizer": cfg.optimizer, "losses": losses,
+               "loss_rel_gap": loss_gap, "grad_tol_ratio": grad_ratio,
+               "resume_tol_ratio": resume_ratio,
+               "resume_bit_equal": resume_equal, "pod_max_abs_diff": pod_diff,
+               "seconds": time.perf_counter() - t0}
+        log(f"[train_gpu_vs_cpu] ok (tf32 off): {cfg.name}, {cfg.optimizer}: "
+            f"{n_steps} steps on the card, losses "
+            f"{[round(x, 4) for x in losses]}; GPU against CPU loss "
+            f"{loss_gap:.2e} relative, gradients at {grad_ratio:.3f} of rtol "
+            f"1e-4 / atol 1e-5; the step after a checkpoint reload at "
+            f"{resume_ratio:.3f} of its tolerance (bit-equal: "
+            f"{resume_equal}); 2 synced pods {pod_diff:.2e} from the synced "
+            f"step (< {POD_TOL}); {row['seconds']:.1f} s")
+        out[arch] = row
+        del model, params, state, p2, s2, pa, pb, ps, p_ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3479,12 +3908,23 @@ def main() -> int:
                f"{QWEN2VL} image layout": qwen2vl_layout, SEAMLESS: seamless,
                "gpu_vs_cpu": lm_gpu_cpu}
     log(f"[lm] runs: {json.dumps(lm_runs, default=str)}")
+    torch.cuda.empty_cache()
+    trained = phase_train_full(torch, kernels)
+    profile = phase_train_profile(torch)
+    remat = phase_train_remat(torch)
+    train_gpu_cpu = phase_train_gpu_vs_cpu(torch)
+    phase_kernel_grad_refused(torch, fa, ssd)
+    runs = {"full": trained, "profile": profile, "remat": remat,
+            "gpu_vs_cpu": train_gpu_cpu}
+    log(f"[train] runs: {json.dumps(runs, default=str)}")
+    train_launches = trained["launches"]
 
     fc1 = timing["segment"][EQ4_K.index(2_097_152)]
     fed = timing["fedavg"]
     eq4c = timing["eq4_capacity"]
     kernels = [
         {"name": "segment_reduce", "route": "cuda",
+         "train_launches": train_launches["segment_reduce"],
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:212",
          "launches": launches["segment_reduce"],
@@ -3515,6 +3955,7 @@ def main() -> int:
                           "bound_by": eq4c["bound_by"],
                           "library_ms": eq4c["library_ms"]}},
         {"name": "fedavg_reduce", "route": "cuda",
+         "train_launches": train_launches["fedavg_reduce"],
          "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
          "replaces": "src/repro/kernels/fedavg_reduce.py:19",
          "launches": launches["fedavg_reduce"],
@@ -3525,6 +3966,7 @@ def main() -> int:
          "library_ms": fed["library_ms"], "call_ms": fed["call_ms"],
          "shape": {"C": fed["C"], "N": fed["N"]}},
         {"name": "flash_attention", "route": "cuda",
+         "train_launches": train_launches["flash_attention"],
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:32",
          "variant": "bf16_tc",
@@ -3551,6 +3993,7 @@ def main() -> int:
                  "encode_launches", "decode_launches",
                  "scoring_launches")}}},
         {"name": "ssd_scan", "route": "cuda",
+         "train_launches": train_launches["ssd_scan"],
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:21",
          "launches": forward["launches"],

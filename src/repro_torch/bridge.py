@@ -8,7 +8,8 @@ numpy. Both models keep the reference's layout, so nothing is transposed.
 The MARL controller's state comes over the same way: the reference's
 ``MADDPGState`` and ``EnvState`` with their leaves as numpy arrays, and so
 do the scenario runners' and the serve loop's: a ``ScenarioBatch``, an
-``FLState`` and a ``ServeState``.
+``FLState`` and a ``ServeState``; and an LM optimizer's state, so that both
+sides train on from one mid-training state.
 """
 from __future__ import annotations
 
@@ -40,14 +41,47 @@ def lm_params_from_numpy(tree, device, dtype=None):
     stacks (jamba's ``blocks.mamba``, (n_blocks, 7, ...)), the
     ``prologue`` and the encoder-decoder's tree (``enc_blocks``,
     ``dec_blocks`` with its ``xattn``) come over leaf for leaf with the
-    reference's keys.
+    reference's keys. A loaded checkpoint's ``params`` come over too (bf16
+    leaves as ``|V2`` bits).
     """
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
-    a = np.asarray(tree)
+    return _float_leaf(tree, device, dtype)
+
+
+def _float_leaf(a, device, dtype=None):
+    """One float leaf -> a tensor on ``device``: through fp32 (which holds
+    bf16 exactly) to ``dtype``, default fp32 for an fp32 leaf and bf16 for
+    any other. A ``|V2`` leaf holds bf16 bits, as a checkpoint of the
+    reference (or of the port) gives them back (``checkpoint/ckpt.py``)."""
+    a = np.asarray(a)
+    if a.dtype == np.dtype("V2"):
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device=device,
+                                             dtype=dtype or torch.bfloat16)
     want = dtype or (torch.float32 if a.dtype == np.float32 else torch.bfloat16)
     return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=want)
+
+
+def opt_state_from_numpy(tree, device):
+    """A reference optimizer state with numpy leaves (e.g.
+    ``jax.tree_util.tree_map(np.asarray, state)``, or a loaded checkpoint's)
+    -> the port's state on ``device``, with the same structure (dicts,
+    lists and tuples): adamw's and
+    adamw_bf16's ``{"m", "v", "step"}``, adafactor's ``{"v": {... {"vr",
+    "vc"} | {"v"}}, "step"}``, sgd's ``{"mom", "step"}``. Float leaves go
+    through fp32 and keep their width (fp32 moments fp32, bf16 moments
+    bf16, as :func:`lm_params_from_numpy`); the step counter is an int32
+    tensor, as the port's adamw and adafactor keep it."""
+    if isinstance(tree, dict):
+        return {k: opt_state_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(opt_state_from_numpy(v, device) for v in tree)
+    a = np.asarray(tree)
+    if a.dtype.kind in "iu":
+        return torch.tensor(a, dtype=torch.int32, device=device)
+    return _float_leaf(a, device)
 
 
 def _tensors(tree, device):

@@ -1,1 +1,1 @@
-from repro_torch.data import cifar10
+from repro_torch.data import cifar10, tokens

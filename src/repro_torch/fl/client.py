@@ -32,10 +32,9 @@ def sgd_step(loss_fn: Callable, opt, params, opt_state, batch):
     leaves = [params[k].detach().requires_grad_(True) for k in keys]
     loss = loss_fn(dict(zip(keys, leaves)), batch)
     grads = torch.autograd.grad(loss.sum(), leaves)
-    with torch.no_grad():
-        params, opt_state = opt.update(
-            {k: p.detach() for k, p in zip(keys, leaves)},
-            dict(zip(keys, grads)), opt_state)
+    params, opt_state = opt.update(
+        {k: p.detach() for k, p in zip(keys, leaves)},
+        dict(zip(keys, grads)), opt_state)
     return params, opt_state, loss.detach()
 
 

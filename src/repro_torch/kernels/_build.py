@@ -139,3 +139,18 @@ def stream_ptr() -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd is on and any of ``tensors`` requires grad: the
+    hand kernel writes its output outside autograd and has no backward (as
+    the reference's ``pallas_call``, through which ``jax.grad`` fails), so
+    its result would carry no gradient and the inputs' would be lost
+    without a word."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {name} kernel has no backward: call it on inputs that do "
+            f"not require grad, or under torch.no_grad(); a model trains on "
+            f"the plain path (build_model(cfg) without use_pallas)")

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, stream_ptr
+from repro_torch.kernels._build import CudaKernel, refuse_grad, stream_ptr
 
 KERNEL = CudaKernel("fedavg_reduce.cu", {
     "fedavg_reduce_f32": (ctypes.c_int, (
@@ -48,7 +48,9 @@ def fedavg_reduce(stacked, weights):
 
     On CUDA the stack must be fp32 with contiguous rows; its row stride may
     exceed N, as in a stack built by :func:`stack_rows`, which lets the
-    kernel use 16-byte loads. The result is fp32.
+    kernel use 16-byte loads. The result is fp32. The kernel has no
+    backward: under autograd it refuses inputs that require grad (the FL
+    rounds call it on models their optimizer updated under no-grad).
     """
     if stacked.device.type == "cpu" and weights.device.type == "cpu":
         return fedavg_reduce_plain(stacked, weights)
@@ -56,6 +58,7 @@ def fedavg_reduce(stacked, weights):
         raise ValueError(f"fedavg kernel needs stacked and weights on one "
                          f"CUDA device, got {stacked.device} and "
                          f"{weights.device}")
+    refuse_grad("FedAvg reduce", stacked, weights)
     if stacked.dtype != torch.float32 or weights.dtype != torch.float32:
         raise TypeError(f"fedavg kernel takes fp32 stacked and weights, got "
                         f"{stacked.dtype} and {weights.dtype}")

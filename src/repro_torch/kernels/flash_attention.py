@@ -19,7 +19,8 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import CudaKernel, row_strides, stream_ptr
+from repro_torch.kernels._build import (CudaKernel, refuse_grad, row_strides,
+                                       stream_ptr)
 from repro_torch.models.layers import attention_reference
 
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
@@ -57,7 +58,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     On CUDA: fp32 or bf16, one dtype for all three, ``vd == hd <= 256``,
     ``Hq % Hkv == 0``, the head-dim stride 1 (other strides are read as
-    they are), non-empty. Anything else raises; there is no fallback. The
+    they are), non-empty, no input that requires grad under autograd (the
+    kernel has no backward). Anything else raises; there is no fallback. The
     tensor-core variant copies 16-byte chunks: a bf16 q, k or v whose rows
     are not 16-byte aligned (its data pointer, or a batch, sequence or head
     stride of an axis longer than 1 not a multiple of 8 elements) is first
@@ -73,6 +75,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash kernel needs q, k, v on one CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")
+    refuse_grad("flash attention", q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash kernel takes fp32 or bf16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")

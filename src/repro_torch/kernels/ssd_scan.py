@@ -10,7 +10,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel, row_strides, stream_ptr
+from repro_torch.kernels._build import (CudaKernel, refuse_grad, row_strides,
+                                       stream_ptr)
 from repro_torch.models.mamba import ssd_chunked_ref
 
 _I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
@@ -62,8 +63,9 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     Needs ``S % chunk == 0``. On CUDA: x, Bm and Cm all fp32 or all bf16
     (read as they are, widened in registers), dt and A fp32, ``N <= 128``,
     ``chunk <= 1024``, the last stride of x, dt, Bm and Cm 1 (other strides
-    are read as they are), A contiguous. Anything else raises; there is no
-    fallback.
+    are read as they are), A contiguous, no input that requires grad under
+    autograd (the kernel has no backward). Anything else raises; there is
+    no fallback.
     """
     if x.ndim != 4 or dt.ndim != 3 or A.ndim != 1 or Bm.ndim != 3 or \
             Cm.shape != Bm.shape:
@@ -87,6 +89,7 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):
     if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
         raise ValueError(f"SSD kernel needs x, dt, A, Bm, Cm on one CUDA "
                          f"device, got {[str(t.device) for t in tensors]}")
+    refuse_grad("SSD scan", *tensors)
     if x.dtype not in _IN_DTYPES or Bm.dtype != x.dtype or \
             Cm.dtype != x.dtype or dt.dtype != torch.float32 or \
             A.dtype != torch.float32:

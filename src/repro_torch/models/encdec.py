@@ -18,17 +18,22 @@ decoder's causal self-attention go through ``layers.attend(...,
 use_pallas=use_pallas)`` (the flash kernel on the card when
 ``use_pallas``); cross-attention always takes the plain path (chunked past
 2048² query-key pairs); decoding uses ``attention_decode``. The training
-objective (``loss_fn``) waits for the training slice (ROADMAP A11.8):
-``Model.loss`` raises.
+objective (:func:`loss_fn`) is ``transformer.chunked_xent`` on the
+decoder's hidden states; under autograd ``cfg.remat`` checkpoints one
+encoder or decoder layer at a time, as the reference's
+``jax.checkpoint(body)``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import chunked_xent
 from repro_torch.utils.tree import tree_map, tree_stack
 
 
@@ -131,16 +136,26 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, device=device)[None, :].expand(B, S)
 
 
+def _remat(cfg, body, bp, x):
+    """``body(bp, x)``, checkpointed when ``cfg.remat`` and autograd is on."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(body, bp, x, use_reentrant=False)
+    return body(bp, x)
+
+
 def encode(cfg, params, frames, *, use_pallas=False):
     """frames: (B, S_enc, d) stub embeddings -> encoder hidden states."""
     B, S, _ = frames.shape
     x = frames.to(_dtype(cfg))
     positions = _positions(B, S, x.device)
-    for i in range(cfg.n_enc_layers):
-        bp = _layer(params["enc_blocks"], i)
+
+    def body(bp, x):
         x, _ = _self_attn(cfg, bp["attn"], x, positions, causal=False,
                           use_pallas=use_pallas)
-        x = _ffn(cfg, bp["ffn"], x)
+        return _ffn(cfg, bp["ffn"], x)
+
+    for i in range(cfg.n_enc_layers):
+        x = _remat(cfg, body, _layer(params["enc_blocks"], i), x)
     return _norm(cfg, x, params["enc_norm_scale"], params["enc_norm_bias"])
 
 
@@ -158,13 +173,16 @@ def forward_hidden(cfg, params, batch, *, use_pallas=False):
     B, S = tokens.shape
     x = params["embed"][tokens]
     positions = _positions(B, S, x.device)
-    for i in range(cfg.n_layers):
-        bp = _layer(params["dec_blocks"], i)
+
+    def body(bp, x):
         x, _ = _self_attn(cfg, bp["attn"], x, positions, causal=True,
                           use_pallas=use_pallas)
         ek, ev = _enc_kv(cfg, bp["xattn"], enc_out)
         x = _cross_attn(cfg, bp["xattn"], x, ek, ev)
-        x = _ffn(cfg, bp["ffn"], x)
+        return _ffn(cfg, bp["ffn"], x)
+
+    for i in range(cfg.n_layers):
+        x = _remat(cfg, body, _layer(params["dec_blocks"], i), x)
     return _norm(cfg, x, params["final_norm_scale"],
                  params["final_norm_bias"]), 0.0
 
@@ -235,3 +253,11 @@ def decode_step(cfg, params, cache, batch, pos: int):
         x = _ffn(cfg, bp["ffn"], x)
     x = _norm(cfg, x, params["final_norm_scale"], params["final_norm_bias"])
     return (x @ params["lm_head"]).to(torch.float32), cache
+
+
+def loss_fn(cfg, params, batch, *, use_pallas=False):
+    """Next-token cross-entropy of the decoder (labels: the shifted tokens
+    padded with -1) through ``transformer.chunked_xent``."""
+    x, _ = forward_hidden(cfg, params, batch, use_pallas=use_pallas)
+    labels = F.pad(batch["tokens"][:, 1:], (0, 1), value=-1)
+    return chunked_xent(cfg, params, x, labels)

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # ----------------------------------------------------------------------------
 # init helpers
@@ -235,8 +236,7 @@ def attention_chunked(q, k, v, *, causal=True, window=0, logit_softcap=None,
     vb = vp.reshape(B, nk, block_k, Hkv, vd).to(torch.float32)
     k_valid = (torch.arange(kp.shape[1], device=dev) < Sk).reshape(nk, block_k)
 
-    blocks = []
-    for qi in range(nq):
+    def q_block(qi: int):
         q_i = qb[:, qi]  # (B, bq, Hkv, G, hd)
         q_pos = qi * block_q + torch.arange(block_q, device=dev) + q_offset
         m = torch.full((B, Hkv, G, block_q), NEG_INF, device=dev)
@@ -256,7 +256,16 @@ def attention_chunked(q, k, v, *, causal=True, window=0, logit_softcap=None,
                 "bkgqs,bskd->bkgqd", p, vb[:, ki])
             m = m_new
         o = acc / torch.clamp(l[..., None], min=1e-37)
-        blocks.append(o.permute(0, 3, 1, 2, 4))  # (B, bq, Hkv, G, vd)
+        return o.permute(0, 3, 1, 2, 4)  # (B, bq, Hkv, G, vd)
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # as the reference's jax.checkpoint on each q block: the backward
+        # recomputes a block's online softmax instead of keeping the fp32
+        # scores and probabilities of every (q, k) block pair
+        blocks = [checkpoint(q_block, qi, use_reentrant=False)
+                  for qi in range(nq)]
+    else:
+        blocks = [q_block(qi) for qi in range(nq)]
     out = torch.cat(blocks, dim=1).reshape(B, nq * block_q, Hq, vd)[:, :Sq]
     return out.to(q.dtype)
 

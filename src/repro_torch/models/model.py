@@ -16,7 +16,9 @@ Every architecture exposes:
     encode(params, frames) -> encoder output   (encoder-decoder only, None
         otherwise: the reference's serve calls ``encdec.encode``; the field
         keeps the model's attention route)
-    loss(params, batch)  raises: training waits for its slice (A11.8)
+    loss(params, batch) -> scalar   (the train step's objective: next-token
+        cross-entropy through the chunked vocab head, plus the MoE aux
+        loss; an encoder-decoder's batch is {frames, tokens})
 """
 from __future__ import annotations
 
@@ -36,11 +38,6 @@ class Model(NamedTuple):
     encode: Optional[Callable] = None
 
 
-def _loss_not_ported(*_args, **_kwargs):
-    raise NotImplementedError("loss_fn and chunked_xent are not ported yet: "
-                              "the LM training slice (ROADMAP A11.8)")
-
-
 def build_model(cfg: ArchConfig, *, use_pallas: bool = False) -> Model:
     """``use_pallas=True`` (the reference's keyword) sends every full-sequence
     GQA attention through the hand-written flash kernel (an encoder-decoder's
@@ -51,7 +48,7 @@ def build_model(cfg: ArchConfig, *, use_pallas: bool = False) -> Model:
         return Model(
             cfg=cfg,
             init=lambda gen: encdec.init_params(cfg, gen),
-            loss=_loss_not_ported,
+            loss=lambda p, b: encdec.loss_fn(cfg, p, b, use_pallas=use_pallas),
             forward=lambda p, b, **kw: encdec.forward(
                 cfg, p, b, use_pallas=use_pallas, **kw),
             init_cache=lambda batch, seq, enc_frames=None, dtype=None,
@@ -65,7 +62,8 @@ def build_model(cfg: ArchConfig, *, use_pallas: bool = False) -> Model:
     return Model(
         cfg=cfg,
         init=lambda gen: transformer.init_params(cfg, gen),
-        loss=_loss_not_ported,
+        loss=lambda p, b: transformer.loss_fn(cfg, p, b,
+                                              use_pallas=use_pallas),
         forward=lambda p, b, **kw: transformer.forward(
             cfg, p, b, use_pallas=use_pallas, **kw),
         init_cache=lambda batch, seq, dtype=None, device=None:

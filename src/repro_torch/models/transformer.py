@@ -22,15 +22,22 @@ A batch carries token ids (``tokens``, a decode step's ``token``) or, for
 the vision stub (qwen2-vl), merged text and patch embeddings (``embeds``,
 a decode step's ``embed``) with M-RoPE's (B, S, 3) ``positions``
 (:func:`_embed_inputs`). The encoder-decoder (seamless) is
-``models/encdec.py``. Not ported yet: the training entries ``loss_fn`` /
-``chunked_xent`` (the training slice, ROADMAP A11.8; ``Model.loss``
-raises). ``cfg.remat`` has no effect: the port has no training path yet.
+``models/encdec.py``.
+
+Training: :func:`loss_fn` is the next-token cross-entropy through
+:func:`chunked_xent`, which never forms (B, S, V) logits. Under autograd,
+``cfg.remat`` checkpoints one block at a time, as the reference's
+``jax.checkpoint(body)``: the backward recomputes a block's activations
+from its input.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -368,8 +375,8 @@ def _final_norm(cfg, params, x):
 
 
 def _logits(cfg, params, x):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return L.softcap((x @ head).to(torch.float32), cfg.final_logit_softcap)
+    return L.softcap((x @ _lm_head(cfg, params)).to(torch.float32),
+                     cfg.final_logit_softcap)
 
 
 def _embed(cfg, params, batch, ids: str, embeds: str):
@@ -407,9 +414,17 @@ def _trunk(cfg, params, batch, *, use_pallas: bool, keep_cache: bool):
                                     _prologue_kind(cfg), use_pallas=use_pallas)
         x, _ = _apply_ffn(cfg, pp["ffn"], x, "mlp")
     aux, caches = 0.0, []
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(n_blocks):
-        x, cache, a = _block_apply(cfg, _layer(params["blocks"], i), x,
-                                   positions, pattern, use_pallas=use_pallas)
+        bp = _layer(params["blocks"], i)
+        if remat:
+            x, cache, a = checkpoint(
+                functools.partial(_block_apply, cfg, pattern=pattern,
+                                  use_pallas=use_pallas),
+                bp, x, positions, use_reentrant=False)
+        else:
+            x, cache, a = _block_apply(cfg, bp, x, positions, pattern,
+                                       use_pallas=use_pallas)
         aux = aux + a
         if keep_cache:
             caches.append(cache)
@@ -472,3 +487,57 @@ def forward_hidden(cfg, params, batch, *, use_pallas: bool = False):
     x, aux, _, _ = _trunk(cfg, params, batch, use_pallas=use_pallas,
                           keep_cache=False)
     return x, aux
+
+
+def _lm_head(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def _xent_chunk(cfg, head, xc, lc):
+    """One chunk's (sum of the masked NLL, count of labels in range)."""
+    logits = L.softcap((xc @ head).to(torch.float32), cfg.final_logit_softcap)
+    logp = torch.log_softmax(logits, dim=-1)
+    safe = torch.clamp(lc, 0, cfg.vocab_padded - 1).to(torch.int64)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    mask = (lc >= 0) & (lc < cfg.vocab_size)
+    return torch.sum(nll * mask), torch.sum(mask.to(torch.float32))
+
+
+def chunked_xent(cfg, params, x, labels, *, chunk: int = 512):
+    """Cross-entropy over the vocab WITHOUT materializing (B, S, V) logits:
+    a loop over sequence chunks (the last padded with label -1). Under
+    autograd each chunk is checkpointed, so the backward recomputes its
+    logits, as the reference's ``jax.checkpoint``. Labels outside ``[0,
+    vocab_size)`` are masked; the mean is over the labels that count."""
+    head = _lm_head(cfg, params)
+    B, S, d = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    body = functools.partial(_xent_chunk, cfg)
+    grad = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S + pad, chunk):
+        xc, lc = x[:, c:c + chunk], labels[:, c:c + chunk]
+        if grad:
+            t, n = checkpoint(body, head, xc, lc, use_reentrant=False)
+        else:
+            t, n = body(head, xc, lc)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg, params, batch, *, use_pallas: bool = False):
+    """Next-token cross-entropy (+ MoE aux). Labels default to the shifted
+    tokens padded with -1; the vision stub's batch carries ``labels``.
+    Uses the chunked vocab head — no (B, S, V) logits tensor."""
+    x, aux = forward_hidden(cfg, params, batch, use_pallas=use_pallas)
+    if "labels" in batch:
+        labels = batch["labels"]
+    else:
+        labels = F.pad(batch["tokens"][:, 1:], (0, 1), value=-1)
+    loss = chunked_xent(cfg, params, x, labels)
+    return loss + 0.01 * aux / max(cfg.n_layers, 1)

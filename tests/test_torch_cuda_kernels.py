@@ -578,3 +578,36 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     strided = torch.ones((1, 4, 64), device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         ssd.ssd_scan(x, dt, A, strided, strided, chunk=32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_refuse_inputs_that_require_grad(cuda, dtype):
+    """The flash, SSD and FedAvg kernels have no backward (nor have the
+    reference's Pallas kernels): on CUDA inputs that require grad they
+    raise, where a result with no ``grad_fn`` would drop the inputs'
+    gradients without a word. Under ``torch.no_grad()`` they launch."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((1, 64, 4, 64), generator=gen, device=cuda, dtype=dtype)
+    kv = torch.randn((1, 64, 2, 64), generator=gen, device=cuda, dtype=dtype)
+    for grad_on in range(3):
+        args = [t.clone().requires_grad_(i == grad_on)
+                for i, t in enumerate((q, kv, kv))]
+        before = fa.KERNEL.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            fa.flash_attention(*args)
+        assert fa.KERNEL.launches == before
+        with torch.no_grad():
+            fa.flash_attention(*args)
+        assert fa.KERNEL.launches == before + 1
+    x, dt, A, bm, cm = _ssd_inputs(1, 64, 2, 8, 4, cuda, 0)
+    for i in range(5):
+        args = [t.clone().requires_grad_(j == i)
+                for j, t in enumerate((x, dt, A, bm, cm))]
+        with pytest.raises(RuntimeError, match="no backward"):
+            ssd.ssd_scan(*args, chunk=32)
+        with torch.no_grad():
+            ssd.ssd_scan(*args, chunk=32)
+    stacked = torch.ones((3, 16), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fr.fedavg_reduce(stacked, torch.ones(3, device=cuda))
+    torch.cuda.synchronize()

@@ -234,6 +234,16 @@ def test_serve_cli_matches_reference_loop(capsys):
     close(res["logits"], want_logits)
 
 
-def test_loss_raises_naming_the_training_slice():
-    with pytest.raises(NotImplementedError, match="A11.8"):
-        build_model(_smoke()[1]).loss({}, {})
+def test_loss_matches_reference():
+    """``Model.loss`` of the encoder-decoder (A11.8): the decoder's
+    next-token cross-entropy over ``transformer.chunked_xent``, with remat
+    on as off (gradients: ``tests/test_torch_loss.py``)."""
+    jcfg, tcfg, jp, tp = _smoke()
+    frames, tokens = _inputs()
+    want = JM.build_model(jcfg).loss(
+        jax.tree_util.tree_map(jnp.asarray, jp), _jbatch(frames, tokens))
+    for remat in (False, True):
+        model = build_model(dataclasses.replace(tcfg, remat=remat),
+                            use_pallas=True)
+        close(model.loss(tp, _tbatch(frames, tokens)), want,
+              rtol=1e-5, atol=0)

@@ -1,7 +1,8 @@
 """The port stands alone and never carries on silently on the CPU.
 
 An AST scan shows that no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``. With
+``chip_smoke.py`` imports ``jax``, the reference package ``repro`` or
+``ml_dtypes`` (which the card's machine does not have). With
 no CUDA device present, the entry points that default to ``cuda`` raise. The
 kernel wrappers run their plain versions only because the tensors they are
 given lie on the CPU; ``tests/test_torch_segment_reduce.py``,
@@ -19,7 +20,7 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imported_roots(path: Path):
@@ -116,6 +117,12 @@ def test_entry_points_raise_without_cuda():
     for argv in ([], ["--device", "cuda"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             serve_dtwn.main(["--capacity", "8", "--rounds", "1", *argv])
+    # the LM trainer
+    from repro_torch.launch import train
+
+    for argv in ([], ["--full"], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train.main(["--arch", "h2o-danube-1.8b", "--steps", "1", *argv])
     # on the CPU on purpose, the serve loop runs
     st = serve.serve_init(env_cfg, scfg, row, device="cpu")
     _, m = serve.serve_rounds(env_cfg, scfg, st,

@@ -365,12 +365,17 @@ def test_serve_cli_on_cpu(capsys):
 
 
 def test_unported_paths_raise():
-    """Training waits for its slice (ROADMAP A11.8): ``loss`` refuses for
-    the decoder-only and the encoder-decoder models alike."""
+    """The LM meshes wait for their slice (ROADMAP A11.9): the trainer
+    refuses ``--devices N`` > 1; training itself (``Model.loss``, A11.8)
+    runs for the decoder-only and the encoder-decoder models alike."""
+    from repro_torch.launch import train
+
+    for argv in (["--devices", "2"], ["--devices", "8", "--hierarchical", "4"]):
+        with pytest.raises(NotImplementedError, match="A11.9"):
+            train.main(["--arch", ARCH, "--steps", "1", "--device", "cpu",
+                         *argv])
     cfg = tconfigs.get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        build_model(cfg).loss({}, {})
-    encdec = tconfigs.get_smoke_config("seamless-m4t-large-v2")
-    assert encdec.is_encoder_decoder
-    with pytest.raises(NotImplementedError, match="training slice"):
-        build_model(encdec, use_pallas=True).loss({}, {})
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (1, 16))
+    assert torch.isfinite(model.loss(params, {"tokens": tokens}))
