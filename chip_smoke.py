@@ -103,7 +103,19 @@ sources, in parallel, and drives the port's paths:
   against the CPU, a checkpoint reload stepped once against the step
   without it, and 2 synced pods against the synced step; and the flash and
   SSD kernels' refusal of inputs that require grad (they have no
-  backward).
+  backward);
+* the LM meshes: 4 gloo ranks sharing the card as a (2, 2) ("data",
+  "model") mesh. mixtral-8x22b at full width cut to 2 layers runs one
+  prefill forward of 4 x 4,096 tokens under ``activation_mesh``, through
+  the flash kernel on each rank's 24 local heads and the expert-parallel
+  all-to-all (4 experts a rank, ff split over "model"), held against one
+  rank at capacity factor 8.0 and with each layer's dropped slots at 1.25;
+  jamba's smoke config through the SSD and flash kernels on local heads
+  against one rank; the train CLI on the synced mesh (danube at full
+  width, 2 steps of 2 x 2,048 tokens) against the one-device CLI; and
+  ``--hierarchical 1`` on the (2, 1, 2) pod mesh against the synced step.
+  Each rank's launches, host-staged collectives, ms and peak memory are
+  printed.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -3833,6 +3845,306 @@ def phase_train_gpu_vs_cpu(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM meshes (ROADMAP A11.9): 4 gloo ranks sharing the card, a (2, 2)
+# ("data", "model") debug mesh (nccl needs a card per rank)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_DEVICE = "cuda"
+# (a) mixtral-8x22b at full width cut to 2 layers: one prefill forward of
+# B x S under activation_mesh(mesh, "2d"), capacity factor 1.25 (the
+# config's; the main run, counted and timed) and 8.0 (no drop: held to one
+# rank at the flash tests' bf16 tolerance)
+MESH_MIXTRAL = ("mixtral-8x22b", 2, 4, 4096)
+MESH_CFS = (8.0, 1.25)
+MESH_BF16_TOL = 3e-2      # the flash tests' bf16 tolerance, of max |logit|
+MESH_FP32_TOL = 1e-4      # fp32 logits (the CPU parity tests' TOL)
+# (b) the train CLI on the synced mesh, danube at full width; 2 steps (a
+# cold and a warm one): a mesh step of 2 x 2,048 tokens moves ~16.8 GB a
+# rank through the host and took ~48 s on 4 gloo ranks (PERF.md, section 6)
+TRAIN_MESH_ARGV = ["--arch", "h2o-danube-1.8b", "--full", "--steps", "2",
+                   "--batch", "2", "--seq", "2048", "--log-every", "1",
+                   "--lr", "1e-5"]
+TRAIN_MESH_LOSS_RTOL = 5e-3   # bf16 partial sums reduced in another order
+# (d) --hierarchical 1 on the (2, 1, 2) pod mesh, danube's smoke config
+POD_ARGV = ["--arch", "h2o-danube-1.8b", "--steps", "1", "--batch", "4",
+            "--seq", "64", "--log-every", "1"]
+
+
+def _mesh_forward(torch, kernels, model, params, batch, mesh=None) -> dict:
+    """One ``last_only`` forward, every count set to 0 just before and read
+    just after: the logits (fp32, on the CPU), the flash and SSD launches,
+    the dropped (token, slot) pairs of each capacity layer (this rank's
+    source shard under expert parallelism), the host-staged collectives,
+    CUDA-event ms and the peak device memory."""
+    from repro_torch.models import moe
+    from repro_torch.sharding import collectives
+    from repro_torch.sharding.act import activation_mesh
+
+    dev = torch.device(MESH_DEVICE)
+    _reset(kernels)
+    collectives.reset_counts()
+    moe.DROP_LOG = []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ctx = activation_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad(), ctx:
+        t0.record()
+        logits, aux = model.forward(params, batch, last_only=True)
+        t1.record()
+        logits, aux = (x.full_tensor() if hasattr(x, "full_tensor") else x
+                       for x in (logits, aux))
+    torch.cuda.synchronize(dev)
+    out = {"logits": logits.float().cpu(), "aux": float(aux),
+           "launches": {k.source.stem: k.launches for k in kernels},
+           "drops": [int(d) for d in moe.DROP_LOG],
+           "host_staged": dict(collectives.HOST_STAGED),
+           "ms": t0.elapsed_time(t1),
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    moe.DROP_LOG = None
+    return out
+
+
+def _mesh_case_runs(name):
+    if name == "mixtral":
+        return [(f"cf{cf}", {"capacity_factor": cf}) for cf in MESH_CFS]
+    return [("smoke", {})]
+
+
+def _mesh_cases():
+    """(name, config, batch, seq): (a) and (c)."""
+    from repro_torch.configs import get_arch_config, get_smoke_config
+
+    arch, layers, B, S = MESH_MIXTRAL
+    serve = importlib.import_module("repro_torch.launch.serve")
+    return [("mixtral", dataclasses.replace(get_arch_config(arch),
+                                            n_layers=layers), B, S),
+            ("jamba", get_smoke_config(JAMBA), serve.BATCH,
+             serve.PROMPT_LEN)]
+
+
+def _mesh_lm_body(mesh) -> dict:
+    """One rank of phases (a) and (c). The ranks draw the full weights one
+    at a time (each keeps its block and frees the rest), then run each
+    case's forwards under ``activation_mesh(mesh, "2d")``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import build_model
+    from repro_torch.sharding import batch_pspec, param_pspecs, place_tree
+    from repro_torch.sharding.specs import place
+
+    serve = importlib.import_module("repro_torch.launch.serve")
+    kernels = [importlib.import_module(f"repro_torch.kernels.{m}").KERNEL
+               for m in ("flash_attention", "ssd_scan")]
+    out = {"coords": mesh.coords}
+    for name, cfg, B, S in _mesh_cases():
+        placed = None
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                _, params = serve.random_model(cfg, serve.SEED, MESH_DEVICE)
+                placed = place_tree(params, param_pspecs(params, mesh), mesh)
+                del params
+                torch.cuda.empty_cache()
+            dist.barrier()
+        tokens = serve.random_prompts(cfg, B, S, serve.SEED, MESH_DEVICE)
+        batch = {"tokens": place(tokens, batch_pspec(mesh, 2), mesh)}
+        for tag, over in _mesh_case_runs(name):
+            model = build_model(dataclasses.replace(cfg, **over),
+                                use_pallas=True)
+            dist.barrier()
+            out[f"{name}/{tag}"] = _mesh_forward(torch, kernels, model,
+                                                 placed, batch, mesh)
+        del placed
+        torch.cuda.empty_cache()
+    return out
+
+
+def _close_ratio(torch, got, want, atol, rtol) -> float:
+    """max |got - want| / (atol + rtol |want|): <= 1 within tolerance."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def phase_mesh_lm(torch, kernels) -> dict:
+    """(a) mixtral-8x22b at full width (d 6144, 48/8 heads of hd 128, 8
+    experts of ff 16,384, vocab 32,768) cut to 2 layers, and (c) jamba's
+    smoke config, on 4 gloo ranks of a (2, 2) mesh sharing the card: one
+    prefill forward each under ``activation_mesh(mesh, "2d")``, through the
+    flash kernel on each rank's local heads (mixtral 24 of 48, B 2 of 4),
+    mixtral's MoE through ``moe_capacity_ep_a2a`` (4 experts a rank, EP
+    over data, ff over model) and jamba's mamba mixer through the SSD
+    kernel on local heads. Held against the same cut on one rank: mixtral
+    at capacity factor 8.0 (no drop) within 3e-2 of the largest logit
+    (bf16; the elementwise ratio at atol = rtol = 3e-2 is reported), jamba
+    within 1e-4 of it (fp32); at 1.25 each layer's dropped slots on the
+    mesh (per source shard, summed) and on one rank (global capacity)."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import build_model
+
+    serve = importlib.import_module("repro_torch.launch.serve")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_mod.spawn_lm_ranks(_mesh_lm_body, MESH_RANKS,
+                                    backend="gloo", device=MESH_DEVICE)
+    spawn_s = time.perf_counter() - t0
+    out = {"spawn_s": spawn_s, "runs": {}}
+    for name, cfg, B, S in _mesh_cases():
+        model0, params = serve.random_model(cfg, serve.SEED, MESH_DEVICE)
+        tokens = serve.random_prompts(cfg, B, S, serve.SEED, MESH_DEVICE)
+        for tag, over in _mesh_case_runs(name):
+            key = f"{name}/{tag}"
+            model = build_model(dataclasses.replace(cfg, **over),
+                                use_pallas=True)
+            one = _mesh_forward(torch, kernels, model, params,
+                                {"tokens": tokens})
+            mesh_runs = [r[key] for r in ranks]
+            got = mesh_runs[0]["logits"]
+            for r, run in enumerate(mesh_runs[1:], 1):
+                if not torch.equal(run["logits"], got):
+                    raise AssertionError(f"[mesh] {key}: rank {r}'s gathered "
+                                         f"logits differ from rank 0's")
+            if not bool(torch.isfinite(got).all()) or \
+                    got.shape != one["logits"].shape:
+                raise AssertionError(f"[mesh] {key}: logits {got.shape} not "
+                                     f"finite or not {one['logits'].shape}")
+            err = float((got - one["logits"]).abs().max())
+            # EP drops are per source shard: sum the data ranks of model 0
+            mesh_drops = [sum(d) for d in zip(*(
+                run["drops"] for r, run in zip(ranks, mesh_runs)
+                if r["coords"][-1] == 0))]
+            row = {"B": B, "S": S, "max_abs_diff": err,
+                   "mesh_launches": [run["launches"] for run in mesh_runs],
+                   "one_rank_launches": one["launches"],
+                   "mesh_drops": mesh_drops, "one_rank_drops": one["drops"],
+                   "host_staged": [run["host_staged"] for run in mesh_runs],
+                   "mesh_ms": [run["ms"] for run in mesh_runs],
+                   "one_rank_ms": one["ms"],
+                   "mesh_peak_gib": [run["peak_gib"] for run in mesh_runs],
+                   "one_rank_peak_gib": one["peak_gib"],
+                   "aux": mesh_runs[0]["aux"], "one_rank_aux": one["aux"]}
+            if tag != "cf1.25":  # the held comparisons
+                tol = MESH_BF16_TOL if name == "mixtral" else MESH_FP32_TOL
+                # elementwise atol = rtol = tol, reported; held: tol of the
+                # largest logit (bf16 partial sums are all-reduced in bf16,
+                # as GSPMD reduces a bf16 product's partials)
+                row["elementwise_ratio"] = _close_ratio(
+                    torch, got, one["logits"], tol, tol)
+                row["max_abs_logit"] = float(one["logits"].abs().max())
+                log(f"[mesh] {key}: elementwise |diff| / ({tol} + {tol} "
+                    f"|logit|) up to {row['elementwise_ratio']:.3f}; mean "
+                    f"|diff| {float((got - one['logits']).abs().mean()):.4e}")
+                _last_logits_close(torch, got, one["logits"], tol,
+                                   f"mesh {key} vs one rank")
+                if name == "mixtral" and (sum(mesh_drops) or sum(one["drops"])):
+                    raise AssertionError(f"[mesh] {key}: slots dropped at "
+                                         f"cf 8.0: {mesh_drops}, "
+                                         f"{one['drops']}")
+            n_attn = _attention_layers(cfg)
+            for r, run in enumerate(mesh_runs):
+                n = run["launches"]
+                if n["flash_attention"] != n_attn or n["ssd_scan"] != \
+                        one["launches"]["ssd_scan"]:
+                    raise AssertionError(f"[mesh] {key}: rank {r} launched "
+                                         f"{n}, one rank {one['launches']}")
+            if name == "mixtral" and MESH_DEVICE == "cuda" and not all(
+                    run["host_staged"].get("all_to_all_calls")
+                    for run in mesh_runs):
+                raise AssertionError(f"[mesh] {key}: no expert-parallel "
+                                     f"all-to-all on some rank")
+            log(f"[mesh] {key} B={B} S={S}: max_abs_diff vs one rank "
+                f"{err:.4e}; launches a rank {row['mesh_launches'][0]}; "
+                f"dropped slots a layer mesh {mesh_drops}, one rank "
+                f"{one['drops']}; aux {row['aux']:.6f} / one rank "
+                f"{row['one_rank_aux']:.6f}")
+            log(f"[mesh] {key}: forward ms (CUDA events) a rank "
+                f"{[round(x, 3) for x in row['mesh_ms']]}, one rank "
+                f"{one['ms']:.3f}; peak GiB a rank "
+                f"{[round(x, 3) for x in row['mesh_peak_gib']]}, one rank "
+                f"{one['peak_gib']:.3f}")
+            log(f"[mesh] {key}: host-staged collectives a rank "
+                f"{json.dumps(row['host_staged'])}")
+            out["runs"][key] = row
+            del model
+        del model0, params, tokens
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase {out['seconds']:.1f} s (the ranks {spawn_s:.1f} s)")
+    return out
+
+
+def phase_train_mesh(torch) -> dict:
+    """(b) the train CLI at full width on the synced mesh:
+    ``train.main(TRAIN_MESH_ARGV + ["--devices", "4"])`` (4 gloo ranks on
+    the card, parameters and adamw state placed by ``param_pspecs``,
+    batches by ``batch_pspec``), its losses against the one-device CLI on
+    the same batches (rtol 5e-3: bf16 partial sums reduced in another
+    order), ms a step (CUDA events), peak memory and host-staged bytes a
+    rank. (d) ``--hierarchical 1 --devices 4`` at danube's smoke config on
+    the (2, 1, 2) pod mesh against the synced one-device step, within the
+    reference test's 5e-3."""
+    from repro_torch.utils.tree import tree_leaves
+
+    train = importlib.import_module("repro_torch.launch.train")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    argv = TRAIN_MESH_ARGV + ["--devices", str(MESH_RANKS)]
+    log(f"[train_mesh] python -m repro_torch.launch.train {' '.join(argv)}")
+    t0 = time.perf_counter()
+    mesh = train.main(argv, trees=False)
+    mesh_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    one = train.main(TRAIN_MESH_ARGV, trees=False)
+    torch.cuda.empty_cache()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(mesh["losses"],
+                                                  one["losses"]))
+    log(f"[train_mesh] losses mesh {mesh['losses']}, one device "
+        f"{one['losses']}; largest relative gap {gap:.3e} (held to "
+        f"{TRAIN_MESH_LOSS_RTOL})")
+    log(f"[train_mesh] ms a step (CUDA events, rank 0) "
+        f"{[round(x, 1) for x in mesh['step_ms']]}, one device "
+        f"{[round(x, 1) for x in one['step_ms']]}; warm tokens/s mesh "
+        f"{mesh['tokens_per_s']:.1f}, one device {one['tokens_per_s']:.1f}")
+    log(f"[train_mesh] peak MiB a rank {mesh['rank_peak_mb']}; host-staged "
+        f"collectives a rank {json.dumps(mesh['rank_host_bytes'])}; "
+        f"{mesh_s:.1f} s in all")
+    if not all(math.isfinite(x) for x in mesh["losses"]) or \
+            gap > TRAIN_MESH_LOSS_RTOL:
+        raise AssertionError(f"[train_mesh] losses {mesh['losses']} against "
+                             f"{one['losses']}")
+    if mesh["mesh"] != {"data": 2, "model": 2}:
+        raise AssertionError(f"[train_mesh] mesh {mesh['mesh']}")
+    # (d)
+    pod = train.main(POD_ARGV + ["--devices", str(MESH_RANKS),
+                                 "--hierarchical", "1"])
+    synced = train.main(POD_ARGV)
+    diff = max(float((a.cpu() - b.cpu()).abs().max()) for a, b in zip(
+        tree_leaves(pod["params"]), tree_leaves(synced["params"])))
+    log(f"[train_mesh] --hierarchical 1 --devices {MESH_RANKS} on "
+        f"{pod['mesh']}: pod 0's parameters against the synced one-device "
+        f"step, max_abs_diff {diff:.4e} (held to {POD_TOL}); losses "
+        f"{pod['losses']} / {synced['losses']}")
+    if not diff < POD_TOL or pod["mesh"] != {"pod": 2, "data": 1,
+                                             "model": 2}:
+        raise AssertionError(f"[train_mesh] hierarchical: {diff}, "
+                             f"{pod['mesh']}")
+    out = {"losses": mesh["losses"], "one_device_losses": one["losses"],
+           "loss_rel_gap": gap, "step_ms": mesh["step_ms"],
+           "one_device_step_ms": one["step_ms"],
+           "tokens_per_s": mesh["tokens_per_s"],
+           "one_device_tokens_per_s": one["tokens_per_s"],
+           "rank_peak_mb": mesh["rank_peak_mb"],
+           "rank_host_staged": mesh["rank_host_bytes"],
+           "pod_max_abs_diff": diff,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[train_mesh] phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3918,6 +4230,15 @@ def main() -> int:
             "gpu_vs_cpu": train_gpu_cpu}
     log(f"[train] runs: {json.dumps(runs, default=str)}")
     train_launches = trained["launches"]
+    torch.cuda.empty_cache()
+    mesh_lm = phase_mesh_lm(torch, kernels)
+    train_mesh = phase_train_mesh(torch)
+    log(f"[mesh] runs: {json.dumps({'lm': mesh_lm, 'train': train_mesh}, default=str)}")
+    mesh_launches = {
+        k.source.stem: {key: [n[k.source.stem] for n in run["mesh_launches"]]
+                        for key, run in mesh_lm["runs"].items()
+                        if key != "mixtral/cf8.0"}
+        for k in (fa.KERNEL, ssd.KERNEL)}
 
     fc1 = timing["segment"][EQ4_K.index(2_097_152)]
     fed = timing["fedavg"]
@@ -3991,13 +4312,15 @@ def main() -> int:
              f"{QWEN2VL} image layout": qwen2vl_layout["launches"],
              SEAMLESS: {k: seamless[k] for k in (
                  "encode_launches", "decode_launches",
-                 "scoring_launches")}}},
+                 "scoring_launches")}},
+         "mesh_launches": mesh_launches["flash_attention"]},
         {"name": "ssd_scan", "route": "cuda",
          "train_launches": train_launches["ssd_scan"],
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:21",
          "launches": forward["launches"],
          "jamba_smoke_launches": jamba["ssd_launches"],
+         "mesh_launches": mesh_launches["ssd_scan"],
          "max_abs_err": scan["max_abs_err"],
          "ms": scan["ms"], "plain_ms": scan["plain_ms"],
          "bound_ms": scan["bound_ms"], "bound_by": scan["bound_by"],

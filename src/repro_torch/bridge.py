@@ -193,3 +193,14 @@ def serve_state_from_numpy(tree, device):
         fl=(None if getattr(tree, "fl", None) is None
             else fl_state_from_numpy(tree.fl, device)),
         round=int(np.asarray(tree.round)))
+
+
+def lm_params_to_mesh(tree, mesh, device=None, dtype=None, layout="2d"):
+    """A reference LM parameter tree (numpy leaves, as
+    :func:`lm_params_from_numpy` takes it) placed on an LM mesh
+    (``launch/mesh.py``) by ``sharding.param_pspecs``: DTensors, each rank
+    keeping its own block. ``device`` defaults to the mesh's."""
+    from repro_torch.sharding import param_pspecs, place_tree
+
+    params = lm_params_from_numpy(tree, device or mesh.device, dtype)
+    return place_tree(params, param_pspecs(params, mesh, layout), mesh)

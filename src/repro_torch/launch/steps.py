@@ -7,29 +7,63 @@ computes ``model.loss``, takes ``torch.autograd.grad`` over the leaves in
 ``tree_leaves`` order (a leaf the loss does not reach gets zeros, as
 ``jax.grad`` gives) and applies ``opt.update``, which records no history.
 Every step returns new trees; the ones it is given are not written.
+
+On an LM mesh the trees hold DTensors placed by ``sharding.param_pspecs``
+(the reference's jit on sharded arguments): the step runs with plain
+tensors taken as replicated (DTensor's ``implicit_replication``), each
+gradient is reduced to its parameter's placements, and the new trees keep
+the placements of the old.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
+def _placed_like(new, old):
+    """``new`` redistributed to ``old``'s placements where both are
+    DTensors (a no-op when they agree)."""
+    if isinstance(new, DTensor) and isinstance(old, DTensor) \
+            and new.placements != old.placements:
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
+def _mesh_context(leaves):
+    if any(isinstance(x, DTensor) for x in leaves):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def make_train_step(model: Model, opt: Optimizer) -> Callable:
     def step(params, opt_state, batch):
-        leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
-        with torch.enable_grad():
-            loss = model.loss(tree_unflatten_like(params, leaves), batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        params, opt_state = opt.update(
-            tree_unflatten_like(params, [x.detach() for x in leaves]),
-            tree_unflatten_like(params, grads), opt_state)
-        return params, opt_state, loss.detach()
+        old = tree_leaves(params)
+        leaves = [x.detach().requires_grad_() for x in old]
+        with _mesh_context(old):
+            with torch.enable_grad():
+                loss = model.loss(tree_unflatten_like(params, leaves), batch)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            grads = [_placed_like(g, p) for g, p in zip(grads, old)]
+            new_p, new_s = opt.update(
+                tree_unflatten_like(params, [x.detach() for x in leaves]),
+                tree_unflatten_like(params, grads), opt_state)
+        new_p = tree_map(_placed_like, new_p, params)
+        new_s = tree_map(_placed_like, new_s, opt_state)
+        loss = loss.detach()
+        if isinstance(loss, DTensor):
+            loss = loss.full_tensor()
+        return new_p, new_s, loss
 
     return step
 

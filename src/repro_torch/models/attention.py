@@ -10,6 +10,7 @@ import math
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.act import constrain, unshard
 
 # past this many cache slots a gemma2 global layer's decode attends to the
 # sliding window only (the reference's long-context variant)
@@ -54,7 +55,7 @@ def _window(cfg, is_global: bool, cache_len: int = 0) -> int:
 
 
 def _qkv(cfg, p, x):
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = (x @ unshard(p[w], None, "model") for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return q, k, v
@@ -66,12 +67,17 @@ def gqa_forward(cfg, p, x, positions, *, is_global=True, use_pallas=False):
     layers."""
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
-    q = _rope(cfg, q.reshape(B, S, cfg.n_heads, cfg.head_dim), positions)
-    k = _rope(cfg, k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim), positions)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    heads = ("batch", None, "model", None)
+    q = _rope(cfg, constrain(q.reshape(B, S, cfg.n_heads, cfg.head_dim),
+                             *heads), positions)
+    k = _rope(cfg, constrain(k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+                             *heads), positions)
+    v = constrain(v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim), *heads)
     o = L.attend(q, k, v, causal=True, window=_window(cfg, is_global),
                  logit_softcap=cfg.attn_logit_softcap, use_pallas=use_pallas)
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"], (k, v)
+    o = constrain(o, *heads)
+    return o.reshape(B, S, cfg.q_dim) @ unshard(p["wo"], "model", None), \
+        (k, v)
 
 
 def _dynamic_start(start: int, size: int, dim: int) -> int:
@@ -121,7 +127,8 @@ def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, positions, *,
     else:
         o = L.attention_decode(q, cache_k, cache_v, kv_len=int(pos) + 1,
                                logit_softcap=cfg.attn_logit_softcap)
-    return o.reshape(B, 1, cfg.q_dim) @ p["wo"], cache_k, cache_v
+    return o.reshape(B, 1, cfg.q_dim) @ unshard(p["wo"], "model", None), \
+        cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------
@@ -152,30 +159,35 @@ def _mla_qkv(cfg, p, x, positions):
     B, S, _ = x.shape
     H = cfg.n_heads
     qk_n, qk_r, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
-    q = L.rmsnorm(x @ p["q_down"], p["q_norm_scale"], cfg.norm_eps)
-    q = (q @ p["q_up"]).reshape(B, S, H, qk_n + qk_r)
+    q = L.rmsnorm(x @ unshard(p["q_down"], None, None), p["q_norm_scale"],
+                  cfg.norm_eps)
+    q = (q @ unshard(p["q_up"], None, "model")).reshape(B, S, H, qk_n + qk_r)
     q_nope, q_rope = q[..., :qk_n], q[..., qk_n:]
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
-    ckv = x @ p["kv_down"]  # (B, S, r + qk_r)
+    ckv = x @ unshard(p["kv_down"], None, None)  # (B, S, r + qk_r)
     c_kv = L.rmsnorm(ckv[..., :r], p["kv_norm_scale"], cfg.norm_eps)
     k_rope = L.apply_rope(ckv[..., r:].reshape(B, S, 1, qk_r), positions,
                           cfg.rope_theta)
     return q_nope, q_rope, c_kv, k_rope
 
 
-def _mla_eff_qkv(cfg, p, q_nope, q_rope, c_kv, k_rope_flat):
+def _mla_eff_qkv(cfg, p, q_nope, q_rope, c_kv, k_rope_flat, seq_part=None):
     """The GQA problem MLA reduces to once kv_up's nope projection is
     absorbed into the query: Hkv = 1, effective query (B, Sq, H, r + qk_r)
     = (q_nope · w_kc) ⊕ q_rope, key (B, Skv, 1, r + qk_r) = c_kv ⊕ k_rope,
     value (B, Skv, 1, r) = c_kv. The absorption is an fp32 product cast back
-    to the model's dtype, as in the reference. Returns (q, k, v, scale)."""
+    to the model's dtype, as in the reference. Decode passes
+    ``seq_part="model"``: on a mesh the cache's seq dim stays sharded.
+    Returns (q, k, v, scale)."""
     H, qk_n, r = q_nope.shape[2], cfg.qk_nope_head_dim, cfg.kv_lora_rank
-    w_kc = p["kv_up"][:, :H * qk_n].reshape(r, H, qk_n)
+    w_kc = unshard(p["kv_up"], None, "model")[:, :H * qk_n].reshape(r, H, qk_n)
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(torch.float32),
                          w_kc.to(torch.float32)).to(q_nope.dtype)
-    q_eff = torch.cat([q_lat, q_rope], dim=-1)
-    k_eff = torch.cat([c_kv, k_rope_flat], dim=-1)[:, :, None, :]
-    v_eff = c_kv[:, :, None, :]
+    q_eff = constrain(torch.cat([q_lat, q_rope], dim=-1),
+                      "batch", None, "model", None)
+    k_eff = constrain(torch.cat([c_kv, k_rope_flat], dim=-1)[:, :, None, :],
+                      "batch", seq_part, None, None)
+    v_eff = constrain(c_kv[:, :, None, :], "batch", seq_part, None, None)
     scale = 1.0 / math.sqrt(qk_n + cfg.qk_rope_head_dim)
     return q_eff, k_eff, v_eff, scale
 
@@ -184,8 +196,8 @@ def _mla_out(cfg, p, o_lat):
     """o_lat: (B, Sq, H, r) latent attention output -> (B, Sq, H * v_dim),
     through kv_up's value half in fp32."""
     B, Sq, H, r = o_lat.shape
-    w_vc = p["kv_up"][:, H * cfg.qk_nope_head_dim:].reshape(r, H,
-                                                             cfg.v_head_dim)
+    w_vc = unshard(p["kv_up"], None, "model")[
+        :, H * cfg.qk_nope_head_dim:].reshape(r, H, cfg.v_head_dim)
     o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(torch.float32),
                      w_vc.to(torch.float32))
     return o.reshape(B, Sq, H * cfg.v_head_dim).to(o_lat.dtype)
@@ -203,7 +215,8 @@ def mla_forward(cfg, p, x, positions, **_):
     q_eff, k_eff, v_eff, scale = _mla_eff_qkv(cfg, p, q_nope, q_rope, c_kv,
                                               k_rope_flat)
     o_lat = L.attend(q_eff, k_eff, v_eff, causal=True, scale=scale)
-    return _mla_out(cfg, p, o_lat) @ p["wo"], (c_kv, k_rope_flat)
+    return _mla_out(cfg, p, o_lat) @ unshard(p["wo"], "model", None), \
+        (c_kv, k_rope_flat)
 
 
 def mla_decode(cfg, p, x, cache_ckv, cache_krope, pos: int, positions, **_):
@@ -215,7 +228,9 @@ def mla_decode(cfg, p, x, cache_ckv, cache_krope, pos: int, positions, **_):
     _write(cache_ckv, c_kv, pos)
     _write(cache_krope, k_rope.reshape(B, 1, -1), pos)
     q_eff, k_eff, v_eff, scale = _mla_eff_qkv(cfg, p, q_nope, q_rope,
-                                              cache_ckv, cache_krope)
+                                              cache_ckv, cache_krope,
+                                              seq_part="model")
     o_lat = L.attention_decode(q_eff, k_eff, v_eff, kv_len=int(pos) + 1,
                                scale=scale)
-    return _mla_out(cfg, p, o_lat) @ p["wo"], cache_ckv, cache_krope
+    return _mla_out(cfg, p, o_lat) @ unshard(p["wo"], "model", None), \
+        cache_ckv, cache_krope

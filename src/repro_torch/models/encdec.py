@@ -33,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import chunked_xent
+from repro_torch.models.transformer import chunked_xent, next_token_labels
+from repro_torch.sharding.act import constrain, unshard
 from repro_torch.utils.tree import tree_map, tree_stack
 
 
@@ -104,17 +105,25 @@ def _heads(cfg, t, n_heads: int):
     return t.reshape(B, S, n_heads, cfg.head_dim)
 
 
+def _proj_heads(cfg, h, w, n_heads: int):
+    """``h @ w`` split into heads, constrained to (batch, heads) on a
+    mesh."""
+    return constrain(_heads(cfg, h @ unshard(w, None, "model"), n_heads),
+                     "batch", None, "model", None)
+
+
 def _self_attn(cfg, p, x, positions, *, causal, use_pallas=False):
     """Pre-norm self-attention sub-layer. Returns (x + attn, (k, v))."""
     h = _norm(cfg, x, p["norm_scale"], p["norm_bias"])
     B, S, _ = h.shape
-    q = L.apply_rope(_heads(cfg, h @ p["wq"], cfg.n_heads), positions,
+    q = L.apply_rope(_proj_heads(cfg, h, p["wq"], cfg.n_heads), positions,
                      cfg.rope_theta)
-    k = L.apply_rope(_heads(cfg, h @ p["wk"], cfg.n_kv_heads), positions,
+    k = L.apply_rope(_proj_heads(cfg, h, p["wk"], cfg.n_kv_heads), positions,
                      cfg.rope_theta)
-    v = _heads(cfg, h @ p["wv"], cfg.n_kv_heads)
+    v = _proj_heads(cfg, h, p["wv"], cfg.n_kv_heads)
     o = L.attend(q, k, v, causal=causal, use_pallas=use_pallas)
-    return x + o.reshape(B, S, cfg.q_dim) @ p["wo"], (k, v)
+    return x + o.reshape(B, S, cfg.q_dim) @ unshard(p["wo"], "model", None), \
+        (k, v)
 
 
 def _cross_attn(cfg, p, x, enc_k, enc_v):
@@ -122,9 +131,9 @@ def _cross_attn(cfg, p, x, enc_k, enc_v):
     plain attention path (the reference passes no ``use_pallas``)."""
     h = _norm(cfg, x, p["norm_scale"], p["norm_bias"])
     B, S, _ = h.shape
-    q = _heads(cfg, h @ p["wq"], cfg.n_heads)
+    q = _proj_heads(cfg, h, p["wq"], cfg.n_heads)
     o = L.attend(q, enc_k, enc_v, causal=False)
-    return x + o.reshape(B, S, cfg.q_dim) @ p["wo"]
+    return x + o.reshape(B, S, cfg.q_dim) @ unshard(p["wo"], "model", None)
 
 
 def _ffn(cfg, p, x):
@@ -161,8 +170,8 @@ def encode(cfg, params, frames, *, use_pallas=False):
 
 def _enc_kv(cfg, p, enc_out):
     """A decoder layer's cross-attention K and V of the encoder output."""
-    return (_heads(cfg, enc_out @ p["wk"], cfg.n_kv_heads),
-            _heads(cfg, enc_out @ p["wv"], cfg.n_kv_heads))
+    return (_proj_heads(cfg, enc_out, p["wk"], cfg.n_kv_heads),
+            _proj_heads(cfg, enc_out, p["wv"], cfg.n_kv_heads))
 
 
 def forward_hidden(cfg, params, batch, *, use_pallas=False):
@@ -171,15 +180,17 @@ def forward_hidden(cfg, params, batch, *, use_pallas=False):
     enc_out = encode(cfg, params, batch["frames"], use_pallas=use_pallas)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = params["embed"][tokens]
+    x = constrain(F.embedding(tokens, unshard(params["embed"], None, "model")),
+                  "batch", None, None)
     positions = _positions(B, S, x.device)
 
     def body(bp, x):
+        x = constrain(x, "batch", None, None)
         x, _ = _self_attn(cfg, bp["attn"], x, positions, causal=True,
                           use_pallas=use_pallas)
         ek, ev = _enc_kv(cfg, bp["xattn"], enc_out)
         x = _cross_attn(cfg, bp["xattn"], x, ek, ev)
-        return _ffn(cfg, bp["ffn"], x)
+        return constrain(_ffn(cfg, bp["ffn"], x), "batch", None, None)
 
     for i in range(cfg.n_layers):
         x = _remat(cfg, body, _layer(params["dec_blocks"], i), x)
@@ -194,7 +205,8 @@ def forward(cfg, params, batch, *, use_pallas=False, last_only=False):
     x, aux = forward_hidden(cfg, params, batch, use_pallas=use_pallas)
     if last_only:
         x = x[:, -1:]
-    return (x @ params["lm_head"]).to(torch.float32), aux
+    head = unshard(params["lm_head"], None, "model")
+    return (x @ head).to(torch.float32), aux
 
 
 def init_cache(cfg, batch: int, seq: int, enc_frames: int, dtype=None,
@@ -228,7 +240,7 @@ def decode_step(cfg, params, cache, batch, pos: int):
     written. Returns (logits (B, 1, vocab_padded) fp32, cache)."""
     tokens = batch["token"]
     B = tokens.shape[0]
-    x = params["embed"][tokens]
+    x = F.embedding(tokens, params["embed"])
     positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=x.device)
     for i in range(cfg.n_layers):
@@ -259,5 +271,5 @@ def loss_fn(cfg, params, batch, *, use_pallas=False):
     """Next-token cross-entropy of the decoder (labels: the shifted tokens
     padded with -1) through ``transformer.chunked_xent``."""
     x, _ = forward_hidden(cfg, params, batch, use_pallas=use_pallas)
-    labels = F.pad(batch["tokens"][:, 1:], (0, 1), value=-1)
+    labels = next_token_labels(batch["tokens"])
     return chunked_xent(cfg, params, x, labels)

@@ -6,9 +6,10 @@ layer stacks carry a leading ``(n_layers, ...)`` axis. Random inits draw
 from a ``torch.Generator`` on the generator's device, so a full-width model
 is drawn on the card.
 
-The reference's sharding hooks (``constrain``, ``unshard`` from
-``repro/sharding/act.py``) are no-ops off a device mesh; on one card the
-port drops them.
+The reference's sharding hooks sit where the reference has them
+(``constrain``, ``unshard`` from ``repro_torch.sharding.act``): on an LM
+mesh (``activation_mesh``) they redistribute DTensors, off one they return
+their input unchanged.
 
 Gemma's variants (the ``1 + scale`` RMSNorm with zero-initialised scales,
 and the gelu MLP) are chosen, as in the reference, by the config's name:
@@ -23,6 +24,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding.act import constrain, on_local_shards, unshard
 
 # ----------------------------------------------------------------------------
 # init helpers
@@ -157,9 +160,11 @@ def mlp_apply(p, x, activation: str = "silu"):
     """Gated MLP: (act(x W_gate) * x W_up) W_down, act silu (SwiGLU) or
     gelu. The reference's gelu is ``jax.nn.gelu``, whose default is the
     tanh approximation."""
-    g = x @ p["w_gate"]
+    g = x @ unshard(p["w_gate"], None, "model")
     g = F.gelu(g, approximate="tanh") if activation == "gelu" else F.silu(g)
-    return (g * (x @ p["w_up"])) @ p["w_down"]
+    h = constrain(g * (x @ unshard(p["w_up"], None, "model")),
+                  "batch", None, "model")
+    return h @ unshard(p["w_down"], "model", None)
 
 
 def softcap(x, cap: Optional[float]):
@@ -291,6 +296,8 @@ def attention_decode(q, k_cache, v_cache, *, kv_len=None, window=0,
     s = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
                      k_cache.to(torch.float32)) * scale
     s = softcap(s, logit_softcap)
+    # scores sharded over the seq dim on a mesh: a distributed softmax
+    s = constrain(s, "batch", None, None, "model")
     pos = torch.arange(S, device=q.device)
     ok = pos < kv_len
     if window > 0:
@@ -306,17 +313,16 @@ def attend(q, k, v, *, causal=True, window=0, logit_softcap=None, q_offset=0,
            scale=None, use_pallas: bool = False):
     """Dispatch, as in the reference: ``use_pallas=True`` (the reference's
     keyword for its kernel) takes the hand-written flash kernel; otherwise
-    the chunked plain version for long sequences, the naive one for short."""
+    the chunked plain version for long sequences, the naive one for short.
+    On a mesh every route runs on each rank's batch rows and heads
+    (``sharding.act.on_local_shards``)."""
+    kw = dict(causal=causal, window=window, logit_softcap=logit_softcap,
+              q_offset=q_offset, scale=scale)
     if use_pallas:
         from repro_torch.kernels import ops as kops
 
-        return kops.flash_attention(
-            q, k, v, causal=causal, window=window, logit_softcap=logit_softcap,
-            q_offset=q_offset, scale=scale)
-    if q.shape[1] * k.shape[1] > 2048 * 2048:
-        return attention_chunked(q, k, v, causal=causal, window=window,
-                                 logit_softcap=logit_softcap, q_offset=q_offset,
-                                 scale=scale)
-    return attention_reference(q, k, v, causal=causal, window=window,
-                               logit_softcap=logit_softcap, q_offset=q_offset,
-                               scale=scale)
+        return kops.flash_attention(q, k, v, **kw)
+    fn = attention_chunked if q.shape[1] * k.shape[1] > 2048 * 2048 \
+        else attention_reference
+    bh = {"b": 0, "h": 2}
+    return on_local_shards(fn, (q, k, v), (bh, bh, bh), bh, **kw)

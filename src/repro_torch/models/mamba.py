@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.act import constrain, on_local_shards, unshard
 
 
 def mamba_init(cfg, gen: torch.Generator, dtype):
@@ -44,7 +45,14 @@ def _causal_conv(xBC, w, b):
 
     w[:, K-1] multiplies the current timestep, w[:, 0] the oldest, as in the
     decode path's window. The sum runs in the input's dtype, term by term,
-    in the reference's order."""
+    in the reference's order. On a mesh each rank convolves its own batch
+    rows and channels (the conv never mixes either)."""
+    return on_local_shards(_causal_conv_local, (xBC, w, b),
+                           ({"b": 0, "h": 2}, {"h": 0}, {"h": 0}),
+                           {"b": 0, "h": 2})
+
+
+def _causal_conv_local(xBC, w, b):
     K = w.shape[-1]
     S = xBC.shape[1]
     pad = F.pad(xBC, (0, 0, K - 1, 0))
@@ -123,6 +131,12 @@ def ssd_chunked_ref(x, dt, A, Bm, Cm, chunk: int):
     return (y_intra + y_inter).reshape(Bsz, S, H, P)
 
 
+def _ssd_fp32(x, dt, A, Bm, Cm, *, chunk):
+    f32 = torch.float32
+    return ssd_chunked_ref(x.to(f32), dt, A, Bm.to(f32), Cm.to(f32),
+                           chunk=chunk)
+
+
 def _split_proj(cfg, zxbcdt):
     dI, N = cfg.d_inner, cfg.ssm_state
     z = zxbcdt[..., :dI]
@@ -137,9 +151,11 @@ def mamba_forward(cfg, p, u, *, use_pallas: bool = False):
     hand-written kernel, which needs ``S % cfg.ssm_chunk == 0``."""
     Bsz, S, _ = u.shape
     dI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
+    z, xBC, dt = _split_proj(cfg, u @ unshard(p["in_proj"], None, "model"))
+    xBC = constrain(xBC, "batch", None, "model")
     xBC = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
-    x = xBC[..., :dI].reshape(Bsz, S, H, P)
+    x = constrain(xBC[..., :dI].reshape(Bsz, S, H, P),
+                  "batch", None, "model", None)
     Bm = xBC[..., dI:dI + N]
     Cm = xBC[..., dI + N:]
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
@@ -151,15 +167,16 @@ def mamba_forward(cfg, p, u, *, use_pallas: bool = False):
         # registers, which is exact
         y = kops.ssd_scan(x, dt, A, Bm, Cm, chunk=cfg.ssm_chunk)
     else:
-        f32 = torch.float32
-        y = ssd_chunked_ref(x.to(f32), dt, A, Bm.to(f32), Cm.to(f32),
+        bh = {"b": 0, "h": 2}
+        y = on_local_shards(_ssd_fp32, (x, dt, A, Bm, Cm),
+                            (bh, bh, {"h": 0}, {"b": 0}, {"b": 0}), bh,
                             chunk=min(cfg.ssm_chunk, S))
     # type promotion widens x exactly: the same fp32 product as from an
     # fp32 copy of x
     y = y + p["D"][None, None, :, None] * x
     y = y.reshape(Bsz, S, dI).to(u.dtype)
     y = L.rmsnorm(y * F.silu(z), p["gate_norm_scale"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    return y @ unshard(p["out_proj"], "model", None)
 
 
 def mamba_state_init(cfg, batch: int, dtype, device=None):
@@ -194,4 +211,5 @@ def mamba_decode(cfg, p, u, state):
     y = y + p["D"][None, :, None] * x
     y = y.reshape(Bsz, 1, dI).to(u.dtype)
     y = L.rmsnorm(y * F.silu(z), p["gate_norm_scale"], cfg.norm_eps)
-    return y @ p["out_proj"], {"conv": new_conv, "ssm": h}
+    return y @ unshard(p["out_proj"], "model", None), \
+        {"conv": new_conv, "ssm": h}

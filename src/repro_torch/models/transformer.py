@@ -43,6 +43,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.sharding.act import constrain, unshard
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -375,18 +376,21 @@ def _final_norm(cfg, params, x):
 
 
 def _logits(cfg, params, x):
-    return L.softcap((x @ _lm_head(cfg, params)).to(torch.float32),
-                     cfg.final_logit_softcap)
+    logits = (x @ _lm_head(cfg, params)).to(torch.float32)
+    logits = constrain(logits, "batch", None, "model")
+    return L.softcap(logits, cfg.final_logit_softcap)
 
 
-def _embed(cfg, params, batch, ids: str, embeds: str):
+def _embed(cfg, table, batch, ids: str, embeds: str):
     """The batch's ``embeds`` entry (the vlm / audio stub frontends) cast to
-    the param dtype, else the embedding rows of its ``ids`` entry; scaled by
-    sqrt(d_model) where the config says so."""
+    the param dtype, else the rows of the embedding ``table`` at its
+    ``ids`` entry; scaled by sqrt(d_model) where the config says so."""
     if embeds in batch:
         x = batch[embeds].to(_dtype(cfg))
     else:
-        x = params["embed"][batch[ids]]
+        # a gather of rows (DTensor shards its backward, where the card's
+        # refuses the index_put of a tensor index's)
+        x = F.embedding(batch[ids], table)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -395,11 +399,21 @@ def _embed(cfg, params, batch, ids: str, embeds: str):
 def _embed_inputs(cfg, params, batch):
     """(x (B, S, d), positions): ``batch["positions"]`` where given ((B, S,
     3) for M-RoPE), else ``arange(S)`` for every row."""
-    x = _embed(cfg, params, batch, "tokens", "embeds")
+    x = _embed(cfg, unshard(params["embed"], None, "model"), batch, "tokens",
+               "embeds")
     B, S = x.shape[:2]
     if "positions" in batch:
         return x, batch["positions"]
     return x, torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+
+def _block_body(cfg, bp, x, positions, *, pattern, use_pallas):
+    """One block with its input and output pinned to the batch sharding
+    (the reference's scan body)."""
+    x = constrain(x, "batch", None, None)
+    x, cache, a = _block_apply(cfg, bp, x, positions, pattern,
+                               use_pallas=use_pallas)
+    return constrain(x, "batch", None, None), cache, a
 
 
 def _trunk(cfg, params, batch, *, use_pallas: bool, keep_cache: bool):
@@ -413,18 +427,18 @@ def _trunk(cfg, params, batch, *, use_pallas: bool, keep_cache: bool):
         x, pro_cache = _apply_mixer(cfg, pp["mixer"], x, positions,
                                     _prologue_kind(cfg), use_pallas=use_pallas)
         x, _ = _apply_ffn(cfg, pp["ffn"], x, "mlp")
+    x = constrain(x, "batch", None, None)
     aux, caches = 0.0, []
     remat = cfg.remat and torch.is_grad_enabled()
+    body = functools.partial(_block_body, cfg, pattern=pattern,
+                             use_pallas=use_pallas)
     for i in range(n_blocks):
         bp = _layer(params["blocks"], i)
         if remat:
-            x, cache, a = checkpoint(
-                functools.partial(_block_apply, cfg, pattern=pattern,
-                                  use_pallas=use_pallas),
-                bp, x, positions, use_reentrant=False)
+            x, cache, a = checkpoint(body, bp, x, positions,
+                                     use_reentrant=False)
         else:
-            x, cache, a = _block_apply(cfg, bp, x, positions, pattern,
-                                       use_pallas=use_pallas)
+            x, cache, a = body(bp, x, positions)
         aux = aux + a
         if keep_cache:
             caches.append(cache)
@@ -465,7 +479,7 @@ def decode_step(cfg, params, cache, batch, pos: int):
     ``pos``: index the new token is written at. Returns (logits (B,1,V),
     cache), the cache updated in place."""
     pattern, n_blocks, prologue = block_layout(cfg)
-    x = _embed(cfg, params, batch, "token", "embed")
+    x = _embed(cfg, params["embed"], batch, "token", "embed")
     positions = batch.get("positions")
     if positions is None:
         positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,
@@ -490,17 +504,33 @@ def forward_hidden(cfg, params, batch, *, use_pallas: bool = False):
 
 
 def _lm_head(cfg, params):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """The LM head with its vocab dim over "model" and d_model gathered."""
+    if cfg.tie_embeddings:
+        return unshard(params["embed"], "model", None).T
+    return unshard(params["lm_head"], None, "model")
 
 
 def _xent_chunk(cfg, head, xc, lc):
     """One chunk's (sum of the masked NLL, count of labels in range)."""
     logits = L.softcap((xc @ head).to(torch.float32), cfg.final_logit_softcap)
+    logits = constrain(logits, "batch", None, "model")
     logp = torch.log_softmax(logits, dim=-1)
     safe = torch.clamp(lc, 0, cfg.vocab_padded - 1).to(torch.int64)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     mask = (lc >= 0) & (lc < cfg.vocab_size)
     return torch.sum(nll * mask), torch.sum(mask.to(torch.float32))
+
+
+def pad_seq(t, n: int, value):
+    """``t`` with ``n`` <= ``t.shape[1]`` entries of ``value`` appended
+    along dim 1, as a concatenation (a split DTensor takes it; the card's
+    DTensor refuses ``F.pad`` there)."""
+    return torch.cat([t, torch.full_like(t[:, :n], value)], dim=1)
+
+
+def next_token_labels(tokens):
+    """The shifted tokens, -1 (no label) at the last position."""
+    return pad_seq(tokens[:, 1:], 1, -1)
 
 
 def chunked_xent(cfg, params, x, labels, *, chunk: int = 512):
@@ -514,8 +544,7 @@ def chunked_xent(cfg, params, x, labels, *, chunk: int = 512):
     chunk = min(chunk, S)
     pad = (-S) % chunk
     if pad:
-        x = F.pad(x, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=-1)
+        x, labels = pad_seq(x, pad, 0), pad_seq(labels, pad, -1)
     body = functools.partial(_xent_chunk, cfg)
     grad = torch.is_grad_enabled()
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -538,6 +567,6 @@ def loss_fn(cfg, params, batch, *, use_pallas: bool = False):
     if "labels" in batch:
         labels = batch["labels"]
     else:
-        labels = F.pad(batch["tokens"][:, 1:], (0, 1), value=-1)
+        labels = next_token_labels(batch["tokens"])
     loss = chunked_xent(cfg, params, x, labels)
     return loss + 0.01 * aux / max(cfg.n_layers, 1)

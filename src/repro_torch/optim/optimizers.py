@@ -68,8 +68,9 @@ def sgd(lr=1e-2, momentum: float = 0.9, weight_decay: float = 0.0) -> Optimizer:
 def adamw(lr=3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.1, state_dtype=torch.float32) -> Optimizer:
     def init(params):
-        def z(p):
-            return torch.zeros(p.shape, dtype=state_dtype, device=p.device)
+        def z(p):  # a DTensor's moments take its placements
+            return torch.zeros_like(p, dtype=state_dtype,
+                                    memory_format=torch.contiguous_format)
 
         return {"m": tree_map(z, params), "v": tree_map(z, params),
                 "step": _step0(params)}

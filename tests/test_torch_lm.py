@@ -364,16 +364,28 @@ def test_serve_cli_on_cpu(capsys):
     assert "prefill 20 tokens x 2 seqs" in capsys.readouterr().out
 
 
-def test_unported_paths_raise():
-    """The LM meshes wait for their slice (ROADMAP A11.9): the trainer
-    refuses ``--devices N`` > 1; training itself (``Model.loss``, A11.8)
-    runs for the decoder-only and the encoder-decoder models alike."""
-    from repro_torch.launch import train
+def test_unported_paths_raise(monkeypatch):
+    """What the LM meshes (ROADMAP A11.9) still refuse: a production mesh
+    on a world that is not its 256 (512 with pods) ranks, as
+    ``jax.make_mesh`` refuses one that does not match the devices, and an
+    nccl mesh with more ranks than cards. Training itself (``Model.loss``,
+    A11.8) runs for the decoder-only and the encoder-decoder models
+    alike."""
+    from repro_torch.launch import mesh, train
 
-    for argv in (["--devices", "2"], ["--devices", "8", "--hierarchical", "4"]):
-        with pytest.raises(NotImplementedError, match="A11.9"):
-            train.main(["--arch", ARCH, "--steps", "1", "--device", "cpu",
-                         *argv])
+    with pytest.raises(ValueError, match="needs 256 ranks"):
+        mesh.make_production_mesh()
+    with pytest.raises(ValueError, match="needs 512 ranks"):
+        mesh.make_production_mesh(multi_pod=True)
+    monkeypatch.setattr(train, "default_device",
+                        lambda device=None: torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(ValueError, match="needs 256 ranks, the world has 4"):
+        train.main(["--arch", ARCH, "--steps", "1", "--full"])
+    with pytest.raises(ValueError, match="one card per rank"):
+        mesh.spawn_lm_ranks(print, 8, backend="nccl", device="cuda")
+    monkeypatch.undo()
     cfg = tconfigs.get_smoke_config(ARCH)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))

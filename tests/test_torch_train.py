@@ -109,18 +109,22 @@ def test_train_main_checkpoints_every_50_steps(tmp_path, capsys):
 
 
 def test_train_main_refuses_the_mesh_paths(monkeypatch):
-    """``--devices N`` > 1, more than one visible card, and ``--hierarchical``
-    over a pod mesh wait for the LM meshes (ROADMAP A11.9). On one device
+    """The mesh paths (ROADMAP A11.9) refuse, before any rank starts, a
+    mesh that does not take the ranks: four visible cards with ``--full``
+    ask for the (16, 16) production mesh, with ``--hierarchical`` the (2,
+    16, 16) one, and 6 ranks have no (2, 6 // 4, 2) pod mesh. On one device
     ``--hierarchical`` is ignored, as in the reference."""
-    with pytest.raises(NotImplementedError, match="A11.9"):
-        train.main(_argv("h2o-danube-1.8b", 1, "--devices", "2"))
+    with pytest.raises(ValueError, match="needs 4 ranks, the world has 6"):
+        train.main(_argv("h2o-danube-1.8b", 1, "--devices", "6",
+                         "--hierarchical", "1"))
     monkeypatch.setattr(train, "default_device",
                         lambda device=None: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="A11.9"):
-        train.main(_argv("h2o-danube-1.8b", 1))
-    with pytest.raises(NotImplementedError, match="pod mesh.*A11.9"):
-        train.main(_argv("h2o-danube-1.8b", 1, "--hierarchical", "2"))
+    with pytest.raises(ValueError, match="needs 256 ranks"):
+        train.main(_argv("h2o-danube-1.8b", 1, "--full"))
+    with pytest.raises(ValueError, match="needs 512 ranks"):
+        train.main(_argv("h2o-danube-1.8b", 1, "--full", "--hierarchical",
+                         "2"))
     monkeypatch.undo()
     res = train.main(_argv("h2o-danube-1.8b", 2, "--hierarchical", "2",
                            "--devices", "1"))
