@@ -115,7 +115,18 @@ sources, in parallel, and drives the port's paths:
   width, 2 steps of 2 x 2,048 tokens) against the one-device CLI; and
   ``--hierarchical 1`` on the (2, 1, 2) pod mesh against the synced step.
   Each rank's launches, host-staged collectives, ms and peak memory are
-  printed.
+  printed;
+* the dry run: ``python -m repro_torch.launch.dryrun`` at full width on
+  the production meshes, each in its own process on the CPU (a fake
+  process group of 256 or 512 ranks, meta DTensors, no card): danube's
+  train_4k on (16, 16) ("dp") and on (2, 16, 16), mixtral-8x22b's train_4k
+  (no expert parallelism: 8 experts on 16 FSDP ranks), deepseek-v2-236b's
+  train_4k (the EP all-to-all) and decode_32k, each record ``ok`` with its
+  roofline terms, resident bytes and collectives printed; the counting
+  mode's deferral on this torch (one placed product counted as the rank's
+  local product); and the one-rank roofline of danube's training step and
+  prefill, each below the time this run measured for it, the share of the
+  roofline printed beside the card's name and power limit.
 
 Any failure raises and exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -132,6 +143,7 @@ import functools
 import importlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -139,13 +151,20 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside the
-# tensor cores (the rate of the kernels' adds and multiply-adds) and dense
-# bf16 on the tensor cores (the least time of the bf16 attention's products)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-TF32_OPS_PER_S = 495e12
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # H100 SXM peaks (NVIDIA data sheet, ``repro_torch.launch.mesh``): HBM
+    # bandwidth, fp32 outside the tensor cores (the rate of the kernels'
+    # adds and multiply-adds), dense bf16 on the tensor cores (the least
+    # time of the bf16 attention's products) and tf32
+    from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_OPS_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_FP32 as FP32_OPS_PER_S
+    from repro_torch.launch.mesh import PEAK_FLOPS_TF32 as TF32_OPS_PER_S
+except ImportError:
+    print("chip_smoke: run it from a checkout of the repository "
+          "(src/repro_torch is missing)", file=sys.stderr)
+    sys.exit(1)
 # the CNN's Eq. 4 leaves (fc2_b, conv1_b, conv2_b, fc1_b, conv1_w, fc2_w,
 # conv2_w, fc1_w) and the Eq. 4 weights (K=1): N=10 twins over M=5 BSs
 EQ4_K = (1, 10, 32, 64, 512, 2400, 5120, 51200, 2_097_152)
@@ -4145,6 +4164,219 @@ def phase_train_mesh(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dry run (ROADMAP A11.10): the production meshes as meta DTensors on a
+# fake process group, and the roofline against the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, multi-pod, the layout choose_layout must give): the CLI on
+# the production mesh at full width. On 512 ranks danube's 256 rows do not
+# split over every rank, so the rule gives "2d". mixtral's 8 experts do not
+# divide the 16-rank FSDP axis, so the reference's rule runs its capacity
+# router without expert parallelism; deepseek-v2's 160 experts take the EP
+# all-to-all.
+DRYRUN_COMBOS = (("h2o-danube-1.8b", "train_4k", False, "dp"),
+                 ("mixtral-8x22b", "train_4k", False, "2d"),
+                 ("deepseek-v2-236b", "train_4k", False, "2d"),
+                 ("deepseek-v2-236b", "decode_32k", False, "decode"),
+                 ("h2o-danube-1.8b", "train_4k", True, "2d"))
+DRYRUN_EP = ("deepseek-v2-236b", "train_4k")
+DRYRUN_TIMEOUT_S = 300
+# one placed product on a fake (16, 16) mesh: x (256 x 512, 1024) split over
+# "data", w (1024, 4096) over "model"; rank 0's product is (8192, 1024) x
+# (1024, 256). Then danube's full-width training step (2 x 4,096, as
+# phase_train_full) and prefill (4 x 4,608, as the served prompts) traced
+# on one rank for their roofline.
+DRYRUN_ONE_RANK = """
+import json
+import torch
+from repro_torch.configs import SHAPES
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_lm_mesh
+from repro_torch.sharding.specs import P, place
+
+out = {}
+with dryrun.fake_world(256):
+    mesh = make_lm_mesh((16, 16), ("data", "model"), backend="fake",
+                        device="cpu")
+    x = place(torch.empty((256 * 512, 1024), dtype=torch.bfloat16,
+                          device="meta"), P("data", None), mesh)
+    w = place(torch.empty((1024, 4096), dtype=torch.bfloat16,
+                          device="meta"), P(None, "model"), mesh)
+    cost = dryrun.RankCost()
+    with cost:
+        y = x @ w
+    out["deferral"] = {"dot_flops": cost.dot_flops,
+                       "local": list(y.to_local().shape),
+                       "collectives": cost.collectives}
+for name, (S, B, mode) in {"chip_train": (4096, 2, "train"),
+                           "chip_prefill": (4608, 4, "prefill")}.items():
+    SHAPES[name] = ShapeConfig(name, S, B, mode)
+    with dryrun.fake_world(1):
+        mesh = make_lm_mesh((1, 1), ("data", "model"), backend="fake",
+                            device="cpu")
+        out[name] = dryrun.lower_one("h2o-danube-1.8b", name, mesh=mesh)
+print(json.dumps(out))
+"""
+
+
+def _warm_prefill_ms(torch, serve, reps: int = 3) -> list:
+    """danube's served prefill (``serve.BATCH`` x ``serve.PROMPT_LEN``,
+    bf16, the flash kernel, last-position logits) after one warm-up: CUDA
+    event ms of each of ``reps`` calls."""
+    from repro_torch.configs import get_arch_config
+
+    cfg = get_arch_config(serve.ARCH)
+    ms = []
+    with torch.inference_mode():
+        model, params = serve.random_model(cfg, serve.SEED, "cuda")
+        prompts = serve.random_prompts(cfg, serve.BATCH, serve.PROMPT_LEN,
+                                       serve.SEED, "cuda")
+        batch = serve.prompt_batch(cfg, prompts)
+        for i in range(reps + 1):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            model.forward(params, batch, last_only=True)
+            b.record()
+            torch.cuda.synchronize()
+            if i:
+                ms.append(a.elapsed_time(b))
+    del model, params
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _dryrun_record(arch, shape, pod) -> Path:
+    """The dry run CLI's record of (arch, shape) on the production mesh."""
+    tag = "2x16x16" if pod else "16x16"
+    return ROOT / "results" / "dryrun_torch" / f"{arch}__{shape}__{tag}.json"
+
+
+def _dryrun_line(rec) -> str:
+    roof, cost = rec["roofline"], rec["op_cost"]
+    colls = {k: f"{int(v['count'])} / {v['bytes'] / 1e9:.3f} GB"
+             for k, v in cost["collectives"].items()}
+    return (f"compute {roof['compute_s']:.6f} s, memory "
+            f"{roof['memory_s']:.6f} s, collective {roof['collective_s']:.6f}"
+            f" s, dominant {roof['dominant']}; hbm/device "
+            f"{rec['bytes']['hbm_per_device'] / 1e9:.3f} GB; dot FLOPs a "
+            f"rank {cost['dot_flops_per_device']:.4e}; collectives (count / "
+            f"bytes a rank) {json.dumps(colls)}; useful "
+            f"{rec['useful_flops_ratio']:.4f}; traced n_layers "
+            f"{rec['trace_depths']} in {rec['trace_s']} s")
+
+
+def phase_dryrun(torch, serve, trained, served, device) -> dict:
+    """The dry run's CLI (``python -m repro_torch.launch.dryrun``) on the
+    production meshes at full width (``DRYRUN_COMBOS``), each in its own
+    process on the CPU (a fake process group of 256 or 512 ranks; no card),
+    all started together; its records must be ``ok`` with the layouts
+    ``choose_layout`` gives, and the EP all-to-all must appear where the
+    experts divide the FSDP axis. Beside them, in one more process: the
+    counting mode's deferral on this torch (one placed product's count is
+    the local product's, with no collective), and the one-rank roofline of
+    danube's training step and prefill, each below the time this run
+    measured for it (``phase_train_full``'s warm step; the prefill warm,
+    timed here, and as served, cold)."""
+    t0 = time.perf_counter()
+    warm = _warm_prefill_ms(torch, serve)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    try:
+        for arch, shape, pod, _ in DRYRUN_COMBOS:
+            argv = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--arch", arch, "--shape", shape] + (
+                        ["--multi-pod"] if pod else [])
+            log(f"[dryrun] {' '.join(argv[1:])}")
+            procs[(arch, shape, pod)] = subprocess.Popen(
+                argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        procs["one_rank"] = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_ONE_RANK], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        outs = {}
+        for key, proc in procs.items():
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            if proc.returncode:
+                rec = {}
+                if key != "one_rank":
+                    rec = json.loads(_dryrun_record(*key).read_text())
+                raise AssertionError(
+                    f"dry run {key} failed ({proc.returncode}): "
+                    f"{rec.get('traceback', '')[-3000:]}{err[-3000:]}")
+            outs[key] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    records = {}
+    for arch, shape, pod, layout in DRYRUN_COMBOS:
+        tag = "2x16x16" if pod else "16x16"
+        rec = json.loads(_dryrun_record(arch, shape, pod).read_text())
+        log(f"[dryrun] {arch} {shape} on {tag} ({rec['layout']}): "
+            f"{_dryrun_line(rec)}")
+        if not rec["ok"] or rec["layout"] != layout \
+                or rec["n_chips"] != (512 if pod else 256):
+            raise AssertionError(f"dry run {arch} {shape} {tag}: ok "
+                                 f"{rec['ok']}, layout {rec['layout']} "
+                                 f"(want {layout}), {rec['n_chips']} ranks")
+        records[f"{arch}|{shape}|{tag}"] = rec
+    ep = records["|".join(DRYRUN_EP) + "|16x16"]
+    a2a = ep["op_cost"]["collectives"].get("all-to-all", {"count": 0})
+    if not a2a["count"]:
+        raise AssertionError(f"{DRYRUN_EP}: no all-to-all in the dry run's "
+                             f"collectives {ep['op_cost']['collectives']}")
+    one = json.loads(outs["one_rank"].strip().splitlines()[-1])
+    dfr = one["deferral"]
+    hand = 2.0 * 8192 * 1024 * 256
+    log(f"[dryrun] deferral on torch {torch.__version__}: one placed product "
+        f"on a fake (16, 16) mesh counts {dfr['dot_flops']:.6e} FLOPs on "
+        f"rank 0, local result {dfr['local']}, collectives "
+        f"{dfr['collectives']}; the local product by hand {hand:.6e}")
+    if dfr["dot_flops"] != hand or dfr["local"] != [8192, 256] \
+            or dfr["collectives"]:
+        raise AssertionError(f"the counting mode's deferral: {dfr}")
+    measured = {"train": (trained["warm_step_ms"],
+                          "phase_train_full's warm step, CUDA events"),
+                "prefill": (statistics.median(warm),
+                            "warm, CUDA events, median of 3"),
+                "prefill_served": (served["prefill_ms"],
+                                   "the serve CLI's cold prefill, host clock")}
+    shares = {}
+    for key, rec_key in (("train", "chip_train"), ("prefill", "chip_prefill"),
+                         ("prefill_served", "chip_prefill")):
+        rec = one[rec_key]
+        bound_ms = rec["roofline"]["roofline_step_s"] * 1e3
+        ms, what = measured[key]
+        shares[key] = {"roofline_ms": bound_ms, "measured_ms": ms,
+                       "share": bound_ms / ms,
+                       "dominant": rec["roofline"]["dominant"]}
+        log(f"[dryrun] roofline of danube's {key} on one rank: "
+            f"{bound_ms:.3f} ms ({rec['roofline']['dominant']}; "
+            f"{_dryrun_line(rec)}); measured {ms:.3f} ms ({what}): share "
+            f"of the roofline {bound_ms / ms:.4f} on {device['smi']}")
+        if not bound_ms < ms:
+            raise AssertionError(f"danube {key}: the roofline {bound_ms} ms "
+                                 f"is not below the measured {ms} ms")
+    wall = time.perf_counter() - t0
+    log(f"[dryrun] ok: {len(records)} production-mesh records, deferral "
+        f"exact, roofline shares train {shares['train']['share']:.4f}, "
+        f"prefill {shares['prefill']['share']:.4f} (served "
+        f"{shares['prefill_served']['share']:.4f}); warm prefill ms "
+        f"{[round(x, 3) for x in warm]}; {wall:.1f} s in all")
+    return {"records": {k: {"roofline": r["roofline"],
+                            "hbm_per_device": r["bytes"]["hbm_per_device"],
+                            "collectives": r["op_cost"]["collectives"],
+                            "dot_flops_per_device":
+                                r["op_cost"]["dot_flops_per_device"],
+                            "trace_s": r["trace_s"]}
+                        for k, r in records.items()},
+            "deferral": dfr, "shares": shares, "wall_s": wall}
+
+
 def main() -> int:
     import torch
 
@@ -4155,7 +4387,6 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     sr = importlib.import_module("repro_torch.kernels.segment_reduce")
     fr = importlib.import_module("repro_torch.kernels.fedavg_reduce")
     fa = importlib.import_module("repro_torch.kernels.flash_attention")
@@ -4234,6 +4465,8 @@ def main() -> int:
     mesh_lm = phase_mesh_lm(torch, kernels)
     train_mesh = phase_train_mesh(torch)
     log(f"[mesh] runs: {json.dumps({'lm': mesh_lm, 'train': train_mesh}, default=str)}")
+    dry = phase_dryrun(torch, serve, trained, served, device)
+    log(f"[dryrun] runs: {json.dumps(dry, default=str)}")
     mesh_launches = {
         k.source.stem: {key: [n[k.source.stem] for n in run["mesh_launches"]]
                         for key, run in mesh_lm["runs"].items()

@@ -22,6 +22,20 @@ _ARCH_MODULES = {
 
 ARCH_NAMES = tuple(_ARCH_MODULES)
 
+# (arch, shape) combos excluded from long_500k (the reference's DESIGN.md
+# section 5): pure full-attention architectures with no claimed
+# sub-quadratic variant.
+LONG_CONTEXT_SKIPS = frozenset(
+    {"qwen1.5-4b", "command-r-plus-104b", "qwen2-vl-7b", "deepseek-v2-236b",
+     "seamless-m4t-large-v2"}
+)
+
+
+def supports_shape(arch: str, shape: str) -> bool:
+    if shape == "long_500k" and arch in LONG_CONTEXT_SKIPS:
+        return False
+    return True
+
 
 def _module(name: str):
     if name not in _ARCH_MODULES:
@@ -42,7 +56,9 @@ __all__ = [
     "ShapeConfig",
     "SHAPES",
     "ARCH_NAMES",
+    "LONG_CONTEXT_SKIPS",
     "get_arch_config",
     "get_smoke_config",
     "smoke_reduce",
+    "supports_shape",
 ]

@@ -14,13 +14,14 @@ from repro_torch.sharding.act import on_local_shards
 __all__ = ["fedavg_reduce", "flash_attention", "ssd_scan"]
 
 _BH = {"b": 0, "h": 2}
+_BG = {"b": 0, "g": 2}  # grouped-query key/value heads
 
 
 def flash_attention(q, k, v, **kw):
     """:func:`repro_torch.kernels.flash_attention.flash_attention`; DTensor
     q, k, v run on each rank's (batch, heads) block."""
-    return on_local_shards(_flash.flash_attention, (q, k, v), (_BH,) * 3,
-                           _BH, **kw)
+    return on_local_shards(_flash.flash_attention, (q, k, v),
+                           (_BH, _BG, _BG), _BH, **kw)
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int = 128):

@@ -13,6 +13,10 @@ process group. The backend is named, never switched:
 ``"gloo"``
     CPU tensors, and CUDA tensors when several ranks share one card (its
     ``all_reduce`` and ``broadcast`` take CUDA tensors, through the host).
+``"fake"``
+    The dry run's (``launch/dryrun.py``) process group: one process posing
+    as rank 0 of a world of any size, whose collectives do nothing. It is
+    admitted off CUDA only.
 
 :func:`make_twin_mesh` is the 1-D ``"twin"`` mesh. :func:`make_production_mesh`
 ((16, 16) ``("data", "model")``; (2, 16, 16) with ``"pod"``) and
@@ -44,12 +48,34 @@ import torch.distributed as dist
 from repro_torch.utils.device import default_device
 
 __all__ = ["TwinMesh", "LMMesh", "DIST_BACKENDS", "default_dist_backend",
+           "PEAK_FLOPS_BF16", "PEAK_FLOPS_TF32", "PEAK_FLOPS_FP32", "HBM_BW",
+           "NVLINK_BW_PER_GPU", "NIC_BW_PER_GPU", "NODE_GPUS", "link_bw",
            "make_twin_mesh", "make_production_mesh", "make_debug_mesh",
            "check_backend", "check_world", "debug_mesh_shape",
            "production_mesh_shape",
            "spawn_ranks", "spawn_twin_ranks", "spawn_lm_ranks"]
 
-DIST_BACKENDS = ("nccl", "gloo")
+DIST_BACKENDS = ("nccl", "gloo", "fake")
+
+# NVIDIA H100 SXM5 constants for the roofline model (per GPU). Peaks: the
+# H100 data sheet's dense (no sparsity) rates, bf16 and tf32 on the tensor
+# cores, fp32 on the CUDA cores; HBM3 bandwidth 3.35 TB/s.
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s
+PEAK_FLOPS_TF32 = 495e12      # FLOP/s
+PEAK_FLOPS_FP32 = 67e12       # FLOP/s
+HBM_BW = 3.35e12              # bytes/s
+# Links: within one HGX H100 node (8 GPUs) NVLink 4 gives a GPU 900 GB/s,
+# 450 GB/s each way (data sheet); across nodes a DGX H100 gives each GPU
+# one 400 Gb/s ConnectX-7 NIC, 50 GB/s each way (DGX H100 user guide).
+NVLINK_BW_PER_GPU = 450e9     # bytes/s, one direction
+NIC_BW_PER_GPU = 50e9         # bytes/s, one direction
+NODE_GPUS = 8
+
+
+def link_bw(n_ranks: int) -> float:
+    """A GPU's link bandwidth (bytes/s one way) on a mesh of ``n_ranks``:
+    NVLink inside one node of :data:`NODE_GPUS`, its NIC beyond."""
+    return NVLINK_BW_PER_GPU if n_ranks <= NODE_GPUS else NIC_BW_PER_GPU
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,11 +96,14 @@ def default_dist_backend(device) -> str:
 
 
 def check_backend(backend: str, n_shards: int, device: torch.device):
-    """Refuse an unknown backend, nccl off CUDA, and nccl with more ranks
-    than cards."""
+    """Refuse an unknown backend, nccl off CUDA, fake on CUDA, and nccl
+    with more ranks than cards."""
     if backend not in DIST_BACKENDS:
         raise ValueError(f"dist backend must be one of {DIST_BACKENDS}, got "
                          f"{backend!r}")
+    if backend == "fake" and device.type == "cuda":
+        raise ValueError("the fake backend (the dry run's mesh) runs off "
+                         "CUDA only")
     if backend == "nccl":
         if device.type != "cuda":
             raise ValueError("an nccl mesh runs on CUDA devices; use "

@@ -24,16 +24,8 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.sharding.act import placed_like
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
-
-
-def _placed_like(new, old):
-    """``new`` redistributed to ``old``'s placements where both are
-    DTensors (a no-op when they agree)."""
-    if isinstance(new, DTensor) and isinstance(old, DTensor) \
-            and new.placements != old.placements:
-        return new.redistribute(old.device_mesh, old.placements)
-    return new
 
 
 def _mesh_context(leaves):
@@ -54,12 +46,12 @@ def make_train_step(model: Model, opt: Optimizer) -> Callable:
                 loss = model.loss(tree_unflatten_like(params, leaves), batch)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                             materialize_grads=True)
-            grads = [_placed_like(g, p) for g, p in zip(grads, old)]
+            grads = [placed_like(g, p) for g, p in zip(grads, old)]
             new_p, new_s = opt.update(
                 tree_unflatten_like(params, [x.detach() for x in leaves]),
                 tree_unflatten_like(params, grads), opt_state)
-        new_p = tree_map(_placed_like, new_p, params)
-        new_s = tree_map(_placed_like, new_s, opt_state)
+        new_p = tree_map(placed_like, new_p, params)
+        new_s = tree_map(placed_like, new_s, opt_state)
         loss = loss.detach()
         if isinstance(loss, DTensor):
             loss = loss.full_tensor()

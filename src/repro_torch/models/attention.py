@@ -10,7 +10,8 @@ import math
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.sharding.act import constrain, unshard
+from repro_torch.sharding.act import (constrain, merge_heads, row_parallel,
+                                     split_heads, unshard, write_seq)
 
 # past this many cache slots a gemma2 global layer's decode attends to the
 # sliding window only (the reference's long-context variant)
@@ -65,18 +66,17 @@ def gqa_forward(cfg, p, x, positions, *, is_global=True, use_pallas=False):
     """Full-sequence (train/prefill) forward. Returns (out, (k, v)) so callers
     can stash the KV cache. ``is_global`` toggles gemma2's local/global
     layers."""
-    B, S, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     heads = ("batch", None, "model", None)
-    q = _rope(cfg, constrain(q.reshape(B, S, cfg.n_heads, cfg.head_dim),
+    q = _rope(cfg, constrain(split_heads(q, cfg.n_heads, cfg.head_dim),
                              *heads), positions)
-    k = _rope(cfg, constrain(k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim),
+    k = _rope(cfg, constrain(split_heads(k, cfg.n_kv_heads, cfg.head_dim),
                              *heads), positions)
-    v = constrain(v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim), *heads)
+    v = constrain(split_heads(v, cfg.n_kv_heads, cfg.head_dim), *heads)
     o = L.attend(q, k, v, causal=True, window=_window(cfg, is_global),
                  logit_softcap=cfg.attn_logit_softcap, use_pallas=use_pallas)
     o = constrain(o, *heads)
-    return o.reshape(B, S, cfg.q_dim) @ unshard(p["wo"], "model", None), \
+    return row_parallel(merge_heads(o), p["wo"]), \
         (k, v)
 
 
@@ -92,9 +92,9 @@ def _dynamic_start(start: int, size: int, dim: int) -> int:
 
 def _write(cache, new, pos: int) -> None:
     """Write ``new`` (B, 1, ...) into ``cache`` (B, S, ...) at ``pos`` in
-    place, at ``dynamic_update_slice_in_dim``'s start."""
-    at = _dynamic_start(int(pos), 1, cache.shape[1])
-    cache[:, at:at + 1] = new.to(cache.dtype)
+    place, at ``dynamic_update_slice_in_dim``'s start (on a mesh, by
+    ``act.write_seq``)."""
+    write_seq(cache, new, _dynamic_start(int(pos), 1, cache.shape[1]))
 
 
 def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, positions, *,
@@ -107,12 +107,11 @@ def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, positions, *,
     indices follow ``jax.lax.dynamic_update_slice_in_dim`` and
     ``dynamic_slice_in_dim`` (:func:`_dynamic_start`).
     """
-    B = x.shape[0]
     S = cache_k.shape[1]
     q, k, v = _qkv(cfg, p, x)
-    q = _rope(cfg, q.reshape(B, 1, cfg.n_heads, cfg.head_dim), positions)
-    k = _rope(cfg, k.reshape(B, 1, cfg.n_kv_heads, cfg.head_dim), positions)
-    v = v.reshape(B, 1, cfg.n_kv_heads, cfg.head_dim)
+    q = _rope(cfg, split_heads(q, cfg.n_heads, cfg.head_dim), positions)
+    k = _rope(cfg, split_heads(k, cfg.n_kv_heads, cfg.head_dim), positions)
+    v = split_heads(v, cfg.n_kv_heads, cfg.head_dim)
     _write(cache_k, k, pos)
     _write(cache_v, v, pos)
     window = _window(cfg, is_global, S)
@@ -127,7 +126,7 @@ def gqa_decode(cfg, p, x, cache_k, cache_v, pos: int, positions, *,
     else:
         o = L.attention_decode(q, cache_k, cache_v, kv_len=int(pos) + 1,
                                logit_softcap=cfg.attn_logit_softcap)
-    return o.reshape(B, 1, cfg.q_dim) @ unshard(p["wo"], "model", None), \
+    return row_parallel(merge_heads(o), p["wo"]), \
         cache_k, cache_v
 
 
@@ -156,17 +155,16 @@ def mla_init(cfg, gen, dtype):
 
 def _mla_qkv(cfg, p, x, positions):
     """Shared q/kv projection math. Returns q_nope, q_rope, c_kv, k_rope."""
-    B, S, _ = x.shape
     H = cfg.n_heads
     qk_n, qk_r, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
     q = L.rmsnorm(x @ unshard(p["q_down"], None, None), p["q_norm_scale"],
                   cfg.norm_eps)
-    q = (q @ unshard(p["q_up"], None, "model")).reshape(B, S, H, qk_n + qk_r)
+    q = split_heads(q @ unshard(p["q_up"], None, "model"), H, qk_n + qk_r)
     q_nope, q_rope = q[..., :qk_n], q[..., qk_n:]
     q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
     ckv = x @ unshard(p["kv_down"], None, None)  # (B, S, r + qk_r)
     c_kv = L.rmsnorm(ckv[..., :r], p["kv_norm_scale"], cfg.norm_eps)
-    k_rope = L.apply_rope(ckv[..., r:].reshape(B, S, 1, qk_r), positions,
+    k_rope = L.apply_rope(split_heads(ckv[..., r:], 1, qk_r), positions,
                           cfg.rope_theta)
     return q_nope, q_rope, c_kv, k_rope
 
@@ -179,8 +177,9 @@ def _mla_eff_qkv(cfg, p, q_nope, q_rope, c_kv, k_rope_flat, seq_part=None):
     to the model's dtype, as in the reference. Decode passes
     ``seq_part="model"``: on a mesh the cache's seq dim stays sharded.
     Returns (q, k, v, scale)."""
-    H, qk_n, r = q_nope.shape[2], cfg.qk_nope_head_dim, cfg.kv_lora_rank
-    w_kc = unshard(p["kv_up"], None, "model")[:, :H * qk_n].reshape(r, H, qk_n)
+    H, qk_n = q_nope.shape[2], cfg.qk_nope_head_dim
+    w_kc = split_heads(unshard(p["kv_up"], None, "model")[:, :H * qk_n], H,
+                       qk_n)
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(torch.float32),
                          w_kc.to(torch.float32)).to(q_nope.dtype)
     q_eff = constrain(torch.cat([q_lat, q_rope], dim=-1),
@@ -195,12 +194,12 @@ def _mla_eff_qkv(cfg, p, q_nope, q_rope, c_kv, k_rope_flat, seq_part=None):
 def _mla_out(cfg, p, o_lat):
     """o_lat: (B, Sq, H, r) latent attention output -> (B, Sq, H * v_dim),
     through kv_up's value half in fp32."""
-    B, Sq, H, r = o_lat.shape
-    w_vc = unshard(p["kv_up"], None, "model")[
-        :, H * cfg.qk_nope_head_dim:].reshape(r, H, cfg.v_head_dim)
+    H = o_lat.shape[2]
+    w_vc = split_heads(unshard(p["kv_up"], None, "model")[
+        :, H * cfg.qk_nope_head_dim:], H, cfg.v_head_dim)
     o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(torch.float32),
                      w_vc.to(torch.float32))
-    return o.reshape(B, Sq, H * cfg.v_head_dim).to(o_lat.dtype)
+    return merge_heads(o).to(o_lat.dtype)
 
 
 def mla_forward(cfg, p, x, positions, **_):
@@ -215,7 +214,7 @@ def mla_forward(cfg, p, x, positions, **_):
     q_eff, k_eff, v_eff, scale = _mla_eff_qkv(cfg, p, q_nope, q_rope, c_kv,
                                               k_rope_flat)
     o_lat = L.attend(q_eff, k_eff, v_eff, causal=True, scale=scale)
-    return _mla_out(cfg, p, o_lat) @ unshard(p["wo"], "model", None), \
+    return row_parallel(_mla_out(cfg, p, o_lat), p["wo"]), \
         (c_kv, k_rope_flat)
 
 
@@ -232,5 +231,5 @@ def mla_decode(cfg, p, x, cache_ckv, cache_krope, pos: int, positions, **_):
                                               seq_part="model")
     o_lat = L.attention_decode(q_eff, k_eff, v_eff, kv_len=int(pos) + 1,
                                scale=scale)
-    return _mla_out(cfg, p, o_lat) @ unshard(p["wo"], "model", None), \
+    return row_parallel(_mla_out(cfg, p, o_lat), p["wo"]), \
         cache_ckv, cache_krope

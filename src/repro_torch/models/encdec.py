@@ -34,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import chunked_xent, next_token_labels
-from repro_torch.sharding.act import constrain, unshard
+from repro_torch.sharding.act import (constrain, merge_heads, row_parallel,
+                                     split_heads, unshard)
 from repro_torch.utils.tree import tree_map, tree_stack
 
 
@@ -101,8 +102,7 @@ def init_params(cfg, gen: torch.Generator) -> Dict[str, Any]:
 
 
 def _heads(cfg, t, n_heads: int):
-    B, S, _ = t.shape
-    return t.reshape(B, S, n_heads, cfg.head_dim)
+    return split_heads(t, n_heads, cfg.head_dim)
 
 
 def _proj_heads(cfg, h, w, n_heads: int):
@@ -115,14 +115,13 @@ def _proj_heads(cfg, h, w, n_heads: int):
 def _self_attn(cfg, p, x, positions, *, causal, use_pallas=False):
     """Pre-norm self-attention sub-layer. Returns (x + attn, (k, v))."""
     h = _norm(cfg, x, p["norm_scale"], p["norm_bias"])
-    B, S, _ = h.shape
     q = L.apply_rope(_proj_heads(cfg, h, p["wq"], cfg.n_heads), positions,
                      cfg.rope_theta)
     k = L.apply_rope(_proj_heads(cfg, h, p["wk"], cfg.n_kv_heads), positions,
                      cfg.rope_theta)
     v = _proj_heads(cfg, h, p["wv"], cfg.n_kv_heads)
     o = L.attend(q, k, v, causal=causal, use_pallas=use_pallas)
-    return x + o.reshape(B, S, cfg.q_dim) @ unshard(p["wo"], "model", None), \
+    return x + row_parallel(merge_heads(o), p["wo"]), \
         (k, v)
 
 
@@ -130,10 +129,9 @@ def _cross_attn(cfg, p, x, enc_k, enc_v):
     """Pre-norm cross-attention sub-layer over the encoder's K/V, on the
     plain attention path (the reference passes no ``use_pallas``)."""
     h = _norm(cfg, x, p["norm_scale"], p["norm_bias"])
-    B, S, _ = h.shape
     q = _proj_heads(cfg, h, p["wq"], cfg.n_heads)
     o = L.attend(q, enc_k, enc_v, causal=False)
-    return x + o.reshape(B, S, cfg.q_dim) @ unshard(p["wo"], "model", None)
+    return x + row_parallel(merge_heads(o), p["wo"])
 
 
 def _ffn(cfg, p, x):
@@ -256,12 +254,12 @@ def decode_step(cfg, params, cache, batch, pos: int):
         A._write(self_c["k"], k, pos)
         A._write(self_c["v"], v, pos)
         o = L.attention_decode(q, self_c["k"], self_c["v"], kv_len=int(pos) + 1)
-        x = x + o.reshape(B, 1, cfg.q_dim) @ pa["wo"]
+        x = x + row_parallel(merge_heads(o), pa["wo"])
         px = bp["xattn"]
         hx = _norm(cfg, x, px["norm_scale"], px["norm_bias"])
         qx = _heads(cfg, hx @ px["wq"], cfg.n_heads)
         ox = L.attention_decode(qx, cross_c["k"], cross_c["v"])
-        x = x + ox.reshape(B, 1, cfg.q_dim) @ px["wo"]
+        x = x + row_parallel(merge_heads(ox), px["wo"])
         x = _ffn(cfg, bp["ffn"], x)
     x = _norm(cfg, x, params["final_norm_scale"], params["final_norm_bias"])
     return (x @ params["lm_head"]).to(torch.float32), cache

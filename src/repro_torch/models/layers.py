@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding.act import constrain, on_local_shards, unshard
+from repro_torch.sharding.act import (align, constrain, on_local_shards,
+                                     row_parallel, split_dim, unshard)
 
 # ----------------------------------------------------------------------------
 # init helpers
@@ -164,7 +165,7 @@ def mlp_apply(p, x, activation: str = "silu"):
     g = F.gelu(g, approximate="tanh") if activation == "gelu" else F.silu(g)
     h = constrain(g * (x @ unshard(p["w_up"], None, "model")),
                   "batch", None, "model")
-    return h @ unshard(p["w_down"], "model", None)
+    return row_parallel(h, p["w_down"])
 
 
 def softcap(x, cap: Optional[float]):
@@ -292,7 +293,11 @@ def attention_decode(q, k_cache, v_cache, *, kv_len=None, window=0,
     G = Hq // Hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     kv_len = S if kv_len is None else kv_len
-    qg = q.reshape(B, Hkv, G, hd)
+    # on a mesh the query takes the cache's layout (batch rows, KV heads and
+    # head dim split as the cache's): the products below merge (B, Hkv),
+    # which the card's DTensor (torch 2.11) allows only when no dim but
+    # the first is split
+    qg = align(split_dim(q[:, 0], 1, (Hkv, G)), k_cache, {0: 0, 2: 1, 3: 3})
     s = torch.einsum("bkgd,bskd->bkgs", qg.to(torch.float32),
                      k_cache.to(torch.float32)) * scale
     s = softcap(s, logit_softcap)
@@ -324,5 +329,5 @@ def attend(q, k, v, *, causal=True, window=0, logit_softcap=None, q_offset=0,
         return kops.flash_attention(q, k, v, **kw)
     fn = attention_chunked if q.shape[1] * k.shape[1] > 2048 * 2048 \
         else attention_reference
-    bh = {"b": 0, "h": 2}
-    return on_local_shards(fn, (q, k, v), (bh, bh, bh), bh, **kw)
+    bh, bg = {"b": 0, "h": 2}, {"b": 0, "g": 2}
+    return on_local_shards(fn, (q, k, v), (bh, bg, bg), bh, **kw)

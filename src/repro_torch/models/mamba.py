@@ -17,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.sharding.act import constrain, on_local_shards, unshard
+from repro_torch.sharding.act import (constrain, merge_heads, on_local_shards,
+                                     row_parallel, split_heads, unshard)
 
 
 def mamba_init(cfg, gen: torch.Generator, dtype):
@@ -149,12 +150,12 @@ def mamba_forward(cfg, p, u, *, use_pallas: bool = False):
     """Full-sequence forward. u: (B,S,d) -> (B,S,d). ``use_pallas=True``
     (the reference's keyword for its kernel) sends the SSD scan through the
     hand-written kernel, which needs ``S % cfg.ssm_chunk == 0``."""
-    Bsz, S, _ = u.shape
+    S = u.shape[1]
     dI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     z, xBC, dt = _split_proj(cfg, u @ unshard(p["in_proj"], None, "model"))
     xBC = constrain(xBC, "batch", None, "model")
     xBC = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
-    x = constrain(xBC[..., :dI].reshape(Bsz, S, H, P),
+    x = constrain(split_heads(xBC[..., :dI], H, P),
                   "batch", None, "model", None)
     Bm = xBC[..., dI:dI + N]
     Cm = xBC[..., dI + N:]
@@ -174,9 +175,9 @@ def mamba_forward(cfg, p, u, *, use_pallas: bool = False):
     # type promotion widens x exactly: the same fp32 product as from an
     # fp32 copy of x
     y = y + p["D"][None, None, :, None] * x
-    y = y.reshape(Bsz, S, dI).to(u.dtype)
+    y = merge_heads(y).to(u.dtype)
     y = L.rmsnorm(y * F.silu(z), p["gate_norm_scale"], cfg.norm_eps)
-    return y @ unshard(p["out_proj"], "model", None)
+    return row_parallel(y, p["out_proj"])
 
 
 def mamba_state_init(cfg, batch: int, dtype, device=None):
@@ -191,7 +192,6 @@ def mamba_state_init(cfg, batch: int, dtype, device=None):
 
 def mamba_decode(cfg, p, u, state):
     """One-token recurrent step. u: (B,1,d); returns (y, new_state)."""
-    Bsz = u.shape[0]
     dI, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     z, xBC, dt = _split_proj(cfg, u @ p["in_proj"])
     # conv over (state window + current)
@@ -199,7 +199,7 @@ def mamba_decode(cfg, p, u, state):
     conv_out = torch.einsum("bkc,ck->bc", window, p["conv_w"]) + p["conv_b"]
     xBC_t = F.silu(conv_out)[:, None, :]  # (B,1,conv_dim)
     new_conv = window[:, 1:, :]
-    x = xBC_t[..., :dI].reshape(Bsz, H, P).to(torch.float32)
+    x = split_heads(xBC_t[:, 0, :dI], H, P).to(torch.float32)
     Bm = xBC_t[:, 0, dI:dI + N].to(torch.float32)  # (B,N)
     Cm = xBC_t[:, 0, dI + N:].to(torch.float32)
     dt_t = F.softplus(dt[:, 0].to(torch.float32) + p["dt_bias"])  # (B,H)
@@ -209,7 +209,7 @@ def mamba_decode(cfg, p, u, state):
         "bn,bhp,bh->bhnp", Bm, x, dt_t)
     y = torch.einsum("bn,bhnp->bhp", Cm, h)
     y = y + p["D"][None, :, None] * x
-    y = y.reshape(Bsz, 1, dI).to(u.dtype)
+    y = merge_heads(y)[:, None].to(u.dtype)
     y = L.rmsnorm(y * F.silu(z), p["gate_norm_scale"], cfg.norm_eps)
-    return y @ unshard(p["out_proj"], "model", None), \
+    return row_parallel(y, p["out_proj"]), \
         {"conv": new_conv, "ssm": h}

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.act import (as_dtensor, constrain, ep_enabled,
-                                      unshard)
+                                      on_local_shards, unshard)
 from repro_torch.sharding.specs import P, spec_placements
 
 
@@ -125,6 +125,17 @@ def capacity(cfg, n_tokens: int) -> int:
     return C
 
 
+def _scatter_slots(vals, flat_e, pos_c, *, n_experts: int, capacity: int):
+    """(T * k, d) rows summed into an (E, C, d) buffer at (expert, slot)."""
+    buf = vals.new_zeros((n_experts, capacity, vals.shape[-1]))
+    buf.index_put_((flat_e, pos_c), vals, accumulate=True)
+    return buf
+
+
+def _gather_slots(ye, flat_e, pos_c):
+    return ye[flat_e, pos_c]
+
+
 def moe_capacity(cfg, p, x):
     """Scatter/gather dispatch with a fixed per-expert capacity. A (token,
     slot)'s rank in its expert is an exclusive cumsum in token-major order;
@@ -145,13 +156,16 @@ def moe_capacity(cfg, p, x):
 
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
     vals = xt[tok] * keep[:, None].to(xt.dtype)
-    buf = torch.zeros((E, C, d), dtype=xt.dtype, device=x.device)
-    buf.index_put_((flat_e, pos_c), vals, accumulate=True)
+    # on a mesh the scatter and the gather run on each rank's whole
+    # (replicated) tensors: the reference's law, one capacity for all tokens
+    buf = on_local_shards(_scatter_slots, (vals, flat_e, pos_c), ({},) * 3,
+                          {}, n_experts=E, capacity=C)
     _log_drops(keep)
     buf = constrain(buf, "data", None, None) if ep_enabled(E) \
         else constrain(buf, None, "data", None)
     ye = _experts_apply(p, buf)  # (E, C, d)
-    y_tok = ye[flat_e, pos_c].reshape(T, k, d)  # gather back
+    y_tok = on_local_shards(_gather_slots, (ye, flat_e, pos_c), ({},) * 3,
+                            {}).reshape(T, k, d)  # gather back
     g_eff = gates * keep.reshape(T, k).to(gates.dtype)
     out = (y_tok.to(torch.float32) * g_eff[..., None]).sum(1)
     out = constrain(out.to(x.dtype).reshape(B, S, d), "batch", None, None)

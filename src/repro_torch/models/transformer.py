@@ -479,7 +479,10 @@ def decode_step(cfg, params, cache, batch, pos: int):
     ``pos``: index the new token is written at. Returns (logits (B,1,V),
     cache), the cache updated in place."""
     pattern, n_blocks, prologue = block_layout(cfg)
-    x = _embed(cfg, params["embed"], batch, "token", "embed")
+    # on a mesh the decode layout keeps the table vocab-split: the lookup's
+    # masked partial sums are reduced once, here
+    x = constrain(_embed(cfg, params["embed"], batch, "token", "embed"),
+                  "batch", None, None)
     positions = batch.get("positions")
     if positions is None:
         positions = torch.full((x.shape[0], 1), int(pos), dtype=torch.int32,

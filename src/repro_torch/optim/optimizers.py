@@ -32,6 +32,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.sharding.act import placed_like
 from repro_torch.utils.tree import (tree_leaves, tree_map,
                                     tree_unflatten_like)
 
@@ -130,8 +131,13 @@ def adafactor(lr=1e-3, decay: float = 0.8, eps: float = 1e-30,
             g = g.to(torch.float32)
             g2 = torch.square(g) + eps
             if _factored(p):
-                vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+                # on a mesh a mean over a split dim is a partial sum, placed
+                # as the moment it meets (the card's DTensor, torch 2.11,
+                # cannot turn the split moment into a partial one)
+                vr = beta * s["vr"] + (1 - beta) * placed_like(
+                    torch.mean(g2, dim=-1), s["vr"])
+                vc = beta * s["vc"] + (1 - beta) * placed_like(
+                    torch.mean(g2, dim=-2), s["vc"])
                 rfac = vr / torch.mean(vr, dim=-1, keepdim=True)
                 prec = rfac[..., None] * vc[..., None, :]
                 u = g * torch.rsqrt(prec + eps)

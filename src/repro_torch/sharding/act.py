@@ -147,6 +147,122 @@ def constrain(x, *parts):
                                             spec_placements(spec, mesh))
 
 
+def placed_like(new, old):
+    """``new`` redistributed to ``old``'s placements where both are
+    DTensors (a no-op when they agree, and off a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(new, DTensor) and isinstance(old, DTensor) \
+            and new.placements != old.placements:
+        return new.redistribute(old.device_mesh, old.placements)
+    return new
+
+
+def align(x, ref, dims: dict):
+    """``x`` split as ``ref`` on the dims they share (``dims`` maps a dim
+    of ``ref`` to the dim of ``x`` that matches it) and whole on every
+    other mesh axis; the identity unless both are DTensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not (isinstance(x, DTensor) and isinstance(ref, DTensor)):
+        return x
+    pls = [Shard(dims[pl.dim]) if pl.is_shard() and pl.dim in dims
+           else Replicate() for pl in ref.placements]
+    return x.redistribute(x.device_mesh, pls)
+
+
+def write_seq(dst, src, at: int) -> None:
+    """``dst[:, at:at + n] = src`` in place (``src`` of n positions along
+    dim 1). Where mesh axes split ``dst``'s dim 1 (MLA's decode caches),
+    DTensor would slice a replicated copy and the write would be lost: the
+    rank whose block holds ``at`` writes into its own block instead."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not (isinstance(dst, DTensor)
+            and any(pl.is_shard() and pl.dim == 1 for pl in dst.placements)):
+        dst[:, at:at + src.shape[1]] = src.to(dst.dtype)
+        return
+    mesh = dst.device_mesh
+    coord = mesh.get_coordinate()
+    start, size = 0, dst.shape[1]
+    for i, pl in enumerate(dst.placements):  # mesh order, the first major
+        if pl.is_shard() and pl.dim == 1:
+            size //= mesh.size(i)
+            start += coord[i] * size
+    src = as_dtensor(src, _current()) if not isinstance(src, DTensor) \
+        else src
+    src = src.redistribute(mesh, [
+        Replicate() if pl.is_shard() and pl.dim == 1 else pl
+        for pl in dst.placements]).to_local()
+    lo, hi = max(at, start), min(at + src.shape[1], start + size)
+    if lo < hi:
+        dst.to_local()[:, lo - start:hi - start] = \
+            src[:, lo - at:hi - at].to(dst.dtype)
+
+
+def split_dim(x, dim: int, sizes):
+    """``x`` with ``dim`` split into ``sizes``, on any mesh.
+
+    DTensor refuses to unflatten a dim that mesh axes split unless they
+    also split the new leading dim (a head count). A DTensor whose ``dim``
+    is split over axes whose product does not divide ``sizes[0]`` is
+    therefore first replicated on that dim; the reference reshapes and lets
+    GSPMD reshard to its constraint, which drops such an axis too
+    (:func:`resolve`)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    dim %= x.ndim
+    if isinstance(x, DTensor):
+        split = [i for i, pl in enumerate(x.placements)
+                 if pl.is_shard() and pl.dim == dim]
+        if sizes[0] % math.prod(x.device_mesh.size(i) for i in split):
+            pls = [Replicate() if i in split else pl
+                   for i, pl in enumerate(x.placements)]
+            x = x.redistribute(x.device_mesh, pls)
+    return x.reshape(*x.shape[:dim], *sizes, *x.shape[dim + 1:])
+
+
+def split_heads(x, n_heads: int, head_dim: int):
+    """``x`` (..., n_heads * head_dim) as (..., n_heads, head_dim), on any
+    mesh (:func:`split_dim`)."""
+    return split_dim(x, -1, (n_heads, head_dim))
+
+
+class _MergeHeads(torch.autograd.Function):
+    """(..., n_heads, head_dim) -> (..., n_heads * head_dim), whose
+    backward splits the cotangent by :func:`split_heads` (a plain view's
+    backward would unflatten a cotangent split over more ranks than the
+    head count)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+
+        ctx.heads = tuple(x.shape[-2:])
+        last = x.ndim - 1
+        if any(pl.is_shard() and pl.dim == last for pl in x.placements):
+            # the card's DTensor (torch 2.11) refuses to merge a split dim
+            # into the one before it
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if pl.is_shard() and pl.dim == last else pl
+                for pl in x.placements])
+        return x.flatten(-2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_heads(g, *ctx.heads)
+
+
+def merge_heads(x):
+    """``x`` (..., n_heads, head_dim) as (..., n_heads * head_dim); on a
+    mesh its cotangent is split back by :func:`split_heads`."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        return _MergeHeads.apply(x)
+    return x.flatten(-2)
+
+
 def fsdp_size() -> int:
     """Size of the fsdp (data [x pod]) axis group, or 0 with no mesh
     context."""
@@ -175,6 +291,16 @@ def unshard(w, *parts):
     return constrain(w, *parts)
 
 
+def row_parallel(x, w):
+    """``x @ w`` for an out-projection ``w`` (its contracting dim over
+    "model", gathered over the FSDP axes by :func:`unshard`). Each rank's
+    product is a partial sum; it is summed here over "model", the result's
+    batch kept split, where GSPMD sums the reference's. Left unsummed, the
+    partial sums would reach the next norm and products, which DTensor then
+    runs whole on every model rank."""
+    return constrain(x @ unshard(w, "model", None), "batch", None, None)
+
+
 # ---------------------------------------------------------------------------
 # kernels on local shards
 # ---------------------------------------------------------------------------
@@ -198,13 +324,17 @@ def on_local_shards(fn, args, roles, out_roles, **kw):
     is a DTensor, else ``fn(*args, **kw)`` as it is.
 
     ``roles[i]`` maps a logical axis ("b" batch rows, "h" heads or
-    channels) to the dim of ``args[i]`` that carries it, and ``out_roles``
-    does so for the result. A mesh axis that shards ``args[0]``'s "b" or "h" dim splits
-    every argument's dim of that role; every other axis is replicated. If
-    some argument's head count does not split over the head axes, the
-    heads are replicated for all (the kernel then runs on them whole). The
-    result is a DTensor with ``out_roles``' placements; each rank's call is
-    its own kernel launch."""
+    channels, "g" grouped-query key/value heads) to the dim of ``args[i]``
+    that carries it, and ``out_roles`` does so for the result. A mesh axis
+    that shards ``args[0]``'s "b" or "h" dim splits every argument's dim of
+    that role; every other axis is replicated. A "g" dim splits as "h" when
+    its head count divides over the head axes; when instead the head axes'
+    ranks divide over its heads (8 key/value heads, 16 ranks), each rank
+    takes the one key/value head its query heads attend to. Otherwise, or
+    if some argument's head count does not split, the heads are replicated
+    for all (the kernel then runs on them whole). The result is a DTensor
+    with ``out_roles``' placements; each rank's call is its own kernel
+    launch."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     lead = args[0]
@@ -214,30 +344,47 @@ def on_local_shards(fn, args, roles, out_roles, **kw):
     role_of = {d: r for r, d in roles[0].items()}
     axis_role = [role_of.get(pl.dim) if pl.is_shard() else None
                  for pl in lead.placements]
-    n_heads = math.prod(dmesh.size(i) for i, r in enumerate(axis_role)
-                        if r == "h")
+    head_axes = [i for i, r in enumerate(axis_role) if r == "h"]
+    n_heads = math.prod(dmesh.size(i) for i in head_axes)
+    grouped = [n_heads > 1 and "g" in rl and a.shape[rl["g"]] % n_heads > 0
+               for a, rl in zip(args, roles)]
     if any("h" in rl and a.shape[rl["h"]] % n_heads
-           for a, rl in zip(args, roles)):
+           for a, rl in zip(args, roles)) or any(
+            g and n_heads % a.shape[rl["g"]]
+            for g, a, rl in zip(grouped, args, roles)):
         axis_role = [None if r == "h" else r for r in axis_role]
+        grouped = [False] * len(args)
+    # this rank's place among the head axes' ranks (the first axis major)
+    coord = dmesh.get_coordinate()
+    head_pos = 0
+    for i in head_axes:
+        head_pos = head_pos * dmesh.size(i) + coord[i]
 
-    def placements(rl):
+    def placements(rl, group=False):
+        rl = rl if group or "g" not in rl else {**rl, "h": rl["g"]}
         return [Shard(rl[r]) if r in rl else Replicate() for r in axis_role]
 
-    def grad_placements(rl):
+    def grad_placements(rl, group=False):
         # an argument whole on an axis that splits the work (A over the
-        # batch, B and C over the heads) gets a partial cotangent there
+        # batch, B and C over the heads, a key/value head over the ranks
+        # of its query heads) gets a partial cotangent there
+        rl = rl if group or "g" not in rl else {**rl, "h": rl["g"]}
         return [Shard(rl[r]) if r in rl else
                 Partial() if r is not None else Replicate()
                 for r in axis_role]
 
     local = []
-    for a, rl in zip(args, roles):
+    for a, rl, group in zip(args, roles, grouped):
         if not isinstance(a, DTensor):
             a = DTensor.from_local(a, dmesh, [Replicate()] * dmesh.ndim,
                                    run_check=False)
-        local.append(_ContiguousGrad.apply(
-            a.redistribute(dmesh, placements(rl)).to_local(
-                grad_placements=grad_placements(rl))))
+        t = _ContiguousGrad.apply(
+            a.redistribute(dmesh, placements(rl, group)).to_local(
+                grad_placements=grad_placements(rl, group)))
+        if group:
+            d = rl["g"]
+            t = t.narrow(d, head_pos * a.shape[d] // n_heads, 1).contiguous()
+        local.append(t)
     # a contiguous block: the autograd views of a DTensor need one
     out = fn(*local, **kw).contiguous()
     return DTensor.from_local(out, dmesh, placements(out_roles),

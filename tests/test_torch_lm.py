@@ -367,16 +367,26 @@ def test_serve_cli_on_cpu(capsys):
 def test_unported_paths_raise(monkeypatch):
     """What the LM meshes (ROADMAP A11.9) still refuse: a production mesh
     on a world that is not its 256 (512 with pods) ranks, as
-    ``jax.make_mesh`` refuses one that does not match the devices, and an
-    nccl mesh with more ranks than cards. Training itself (``Model.loss``,
-    A11.8) runs for the decoder-only and the encoder-decoder models
-    alike."""
-    from repro_torch.launch import mesh, train
+    ``jax.make_mesh`` refuses one that does not match the devices, the
+    dry run's fake world of the wrong size too, the fake backend on CUDA
+    (it is admitted off CUDA only, A11.10), and an nccl mesh with more
+    ranks than cards. Training itself (``Model.loss``, A11.8) runs for the
+    decoder-only and the encoder-decoder models alike."""
+    from repro_torch.launch import dryrun, mesh, train
 
     with pytest.raises(ValueError, match="needs 256 ranks"):
         mesh.make_production_mesh()
     with pytest.raises(ValueError, match="needs 512 ranks"):
         mesh.make_production_mesh(multi_pod=True)
+    mesh.check_backend("fake", 256, torch.device("cpu"))
+    with pytest.raises(ValueError, match="off CUDA only"):
+        mesh.check_backend("fake", 1, torch.device("cuda"))
+    with dryrun.fake_world(16):
+        with pytest.raises(ValueError, match="needs 256 ranks, the world "
+                                             "has 16"):
+            mesh.make_production_mesh(backend="fake", device="cpu")
+        assert mesh.make_debug_mesh(backend="fake", device="cpu").sizes == \
+            (8, 2)
     monkeypatch.setattr(train, "default_device",
                         lambda device=None: torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

@@ -2,11 +2,15 @@
 on the CPU: the port's sharded forward under ``activation_mesh``, its loss,
 its gradients and one train step, on 4 gloo ranks of a (2, 2) ``("data",
 "model")`` mesh (``torch_mesh_helpers.lm_mesh_ranks``, one spawn for every
-case), for the smoke configs of danube (and in the pure data-parallel layout "dp"),
-gemma2, mixtral (capacity router:
+case), for the smoke configs of danube (in the pure data-parallel layout
+"dp" too, with 3 query heads and 1 KV head, which "model" does not
+split, and with 4 query heads and 1 KV head), gemma2, mixtral (capacity router:
 expert parallel), deepseek (MLA, capacity: expert parallel), jamba (the SSD
 and flash kernels' wrappers on local heads, capacity: expert parallel),
-qwen2-vl (M-RoPE) and seamless (encoder-decoder).
+qwen2-vl (M-RoPE) and seamless (encoder-decoder), and mixtral with 3
+experts (capacity router, no expert parallelism). The same spawn runs one
+decode step of three smoke configs in the "decode" layout against one
+device.
 
 Both sides take the same weights and batches, made here with numpy from a
 seed. The
@@ -47,16 +51,28 @@ CF8 = dict(router_mode="capacity", capacity_factor=8.0)
 CASES = {
     "danube": ("h2o-danube-1.8b", {}),
     "danube_dp": ("h2o-danube-1.8b", {}),  # the pure data-parallel layout
+    # "model" (2) splits the flat projections (192, 64) but not the heads
+    # (3 and 1): the heads reach their (heads, head_dim) form replicated
+    "danube_odd_heads": ("h2o-danube-1.8b", dict(n_heads=3, n_kv_heads=1,
+                                                 head_dim=64)),
+    # one KV head for the 4 query heads, which "model" splits: each rank
+    # attends its 2 query heads to the one KV head
+    "danube_one_kv_head": ("h2o-danube-1.8b", dict(n_kv_heads=1)),
     "gemma2": ("gemma2-9b", {}),
     "mixtral": ("mixtral-8x22b", CF8),
     "mixtral_cf1.25": ("mixtral-8x22b", dict(router_mode="capacity",
                                               capacity_factor=1.25)),
+    # 3 experts do not divide "data" (2): the capacity router without
+    # expert parallelism, its buffer's slots split over "data"
+    "mixtral_no_ep": ("mixtral-8x22b", dict(CF8, n_experts=3)),
     "deepseek": ("deepseek-v2-236b", CF8),
     "jamba": ("jamba-1.5-large-398b", CF8),
     "qwen2vl": ("qwen2-vl-7b", {}),
     "seamless": ("seamless-m4t-large-v2", {}),
 }
 EP = ("mixtral", "mixtral_cf1.25", "deepseek", "jamba")
+# one decode step of each, in the "decode" layout, B x S = 4 x 16
+DECODE_ARCHS = ("h2o-danube-1.8b", "deepseek-v2-236b", "jamba-1.5-large-398b")
 LAYOUTS = {"danube_dp": "dp"}
 
 REFERENCE = """
@@ -177,7 +193,7 @@ def runs(tmp_path_factory):
                             text=True, env=env)
     try:
         port = spawn_lm_ranks(lm_mesh_ranks, 4, backend="gloo", device="cpu",
-                              args=(cases,))[0]
+                              args=(cases, (DECODE_ARCHS, 4, 16)))[0]
         _, err = proc.communicate(timeout=600)
     finally:
         proc.kill()
@@ -280,3 +296,14 @@ def test_kernels_run_on_local_shards(runs):
     cfg = get_smoke_config("jamba-1.5-large-398b")
     assert set(port["jamba"]["ssd"]) == {
         (B // 2, S, cfg.ssm_heads // 2, cfg.ssm_head_dim)}
+
+
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_decode_step_matches_one_device(runs, arch):
+    """One decode step on the (2, 2) mesh in the "decode" layout equals one
+    device's (fp32, MESH_TOL): GQA's KV caches split on the head dim,
+    MLA's compressed caches split on the sequence (the new token written
+    into the block that holds its slot), and jamba's mamba state and MoE
+    layers."""
+    one, mesh = runs[1]["decode"][arch]
+    np.testing.assert_allclose(mesh, one, **MESH_TOL)

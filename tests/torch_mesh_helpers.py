@@ -22,7 +22,8 @@ from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model
 from repro_torch.models import moe as moe_mod
 from repro_torch.optim import make_optimizer
-from repro_torch.sharding import batch_pspec, param_pspecs, place_tree
+from repro_torch.sharding import (batch_pspec, cache_pspecs, param_pspecs,
+                                  place_tree)
 from repro_torch.sharding.act import activation_mesh
 from repro_torch.sharding.specs import place
 from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
@@ -129,11 +130,12 @@ def staged_collectives(mesh) -> dict:
     return out
 
 
-def lm_mesh_ranks(mesh, cases):
+def lm_mesh_ranks(mesh, cases, decode=((), 0, 0)):
     """Per case: ``mesh`` (the sharded results, one train step among them),
     ``one`` (one device, no step), each with ``drops`` (the forward's dropped (token, slot) pairs per capacity
     layer: this rank's source shard's under EP), ``ep`` (EP dispatches), ``flash`` / ``ssd`` (the local q / x shapes each
-    kernel wrapper saw). Rank 0 returns them; the others None."""
+    kernel wrapper saw); and ``decode``, :func:`decode_steps` of ``decode``
+    (archs, batch, seq). Rank 0 returns them; the others None."""
     torch.set_num_threads(1)
     seen = {"ep": 0, "flash": [], "ssd": []}
     real_ep, real_fa, real_ssd = (moe_mod.moe_capacity_ep_a2a,
@@ -153,7 +155,8 @@ def lm_mesh_ranks(mesh, cases):
 
     moe_mod.moe_capacity_ep_a2a, fa_mod.flash_attention, ssd_mod.ssd_scan = \
         ep, fa, ssd
-    out = {"staged": staged_collectives(mesh)}
+    out = {"staged": staged_collectives(mesh),
+           "decode": decode_steps(mesh, *decode)}
     for case in cases:
         cfg = config(case["arch"], case["overrides"])
         model = build_model(cfg, use_pallas=True)
@@ -179,3 +182,42 @@ def lm_mesh_ranks(mesh, cases):
             res["oracle"] = _whole(dense.forward(one_p, batch)[0])
         out[case["name"]] = res
     return out if mesh.rank == 0 else None
+
+
+def _random_like(tree, gen):
+    if isinstance(tree, dict):
+        return {k: _random_like(v, gen) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_random_like(v, gen) for v in tree)
+    if tree is None:
+        return None
+    return torch.randn(tree.shape, generator=gen, dtype=tree.dtype)
+
+
+def decode_steps(mesh, archs, batch, seq):
+    """Per architecture: one decode step of its smoke config (weights from
+    seed 0, a cache of N(0, 1) values and a token from seed 1, the new
+    token at the last slot) on one device and on ``mesh`` in the "decode"
+    layout (the cache placed by ``cache_pspecs``: KV caches split on the
+    head dim, MLA's on the sequence); {arch: (one, mesh)} logits."""
+    import copy
+
+    out = {}
+    for arch in archs:
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(1)
+        cache = _random_like(model.init_cache(batch, seq, device="cpu"), gen)
+        tok = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen)
+        one, _ = model.decode_step(params, copy.deepcopy(cache),
+                                   {"token": tok}, seq - 1)
+        mesh_p = place_tree(params, param_pspecs(params, mesh, "decode"),
+                            mesh)
+        mesh_c = place_tree(cache, cache_pspecs(cache, mesh, batch), mesh)
+        mesh_t = {"token": place(tok, batch_pspec(mesh, 2, layout="decode"),
+                                 mesh)}
+        with activation_mesh(mesh, "decode"):
+            got, _ = model.decode_step(mesh_p, mesh_c, mesh_t, seq - 1)
+        out[arch] = (_whole(one), _whole(got))
+    return out
